@@ -2,13 +2,22 @@
 
 Module names follow the JAX package so each counterpart is easy to find:
 
-- ``ops``       loss, photometric augmentation (plain PyTorch) and the
-                hand-written CUDA augmentation kernel (``ops.augment_cuda``,
-                source in ``csrc/augment.cu``)
+- ``ops``       loss, photometric augmentation (plain PyTorch), the
+                hand-written CUDA kernels (``ops.augment_cuda``, source
+                ``csrc/augment.cu``; ``ops.pool``, the model's 2x2 max pool,
+                source ``csrc/maxpool.cu``), disparity codec, host resize
 - ``models``    StereoUNet as an ``nn.Module`` + checkpoint key scheme and
                 weight carry-over from the JAX package's variables
 - ``parallel``  train / eval steps, AdamW with the JAX package's schedules,
-                device-resident data step, predict fn
+                device-resident data step and windows, predict fn, batch
+                padding
+- ``data``      sample discovery and split, npz and packed caches, loader,
+                batch iteration and pinned-memory prefetch
+- ``training``  the trainer CLI (``python -m
+                stereo_depth_estimation_tpu_torch.training.trainer``), its
+                config, ``.pt`` checkpoints, MLflow file-store tracking,
+                profiling
+- ``eval``      preview montages
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 asking for CUDA on a host without it raises. Kernels are compiled from

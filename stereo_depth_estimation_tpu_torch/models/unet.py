@@ -3,7 +3,8 @@
 Counterpart of ``stereo_depth_estimation_tpu/models/unet.py`` on its default
 path (``skip_impl="concat"``, ``fused_block=False``, ``remat=False``):
 ConvBlock = (Conv3x3 no-bias -> BatchNorm -> ReLU) x2; 6->32->64->128->256->512
-channels at ``base_channels=32``; 2x2 max-pool down; 2x2 stride-2 ConvTranspose
+channels at ``base_channels=32``; 2x2 max-pool down (``ops/pool.py``: the
+CUDA kernels K2/K3 on the card); 2x2 stride-2 ConvTranspose
 (with bias) up, then a skip concat; 1x1 ``softplus`` disparity head and 1x1
 log-variance head clamped to [-6, 3], both in float32. 7,763,938 parameters at
 base 32.
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..ops.pool import max_pool_2x2
 
 
 class ConvBlock(nn.Module):
@@ -130,10 +132,10 @@ class StereoUNet(nn.Module):
             enabled=self.compute_dtype == torch.bfloat16,
         ):
             s1 = self.enc1(x)
-            s2 = self.enc2(F.max_pool2d(s1, 2))
-            s3 = self.enc3(F.max_pool2d(s2, 2))
-            s4 = self.enc4(F.max_pool2d(s3, 2))
-            b = self.bottleneck(F.max_pool2d(s4, 2))
+            s2 = self.enc2(max_pool_2x2(s1))
+            s3 = self.enc3(max_pool_2x2(s2))
+            s4 = self.enc4(max_pool_2x2(s3))
+            b = self.bottleneck(max_pool_2x2(s4))
             d4 = self.dec4(torch.cat([self.up4(b), s4], dim=1))
             d3 = self.dec3(torch.cat([self.up3(d4), s3], dim=1))
             d2 = self.dec2(torch.cat([self.up2(d3), s2], dim=1))

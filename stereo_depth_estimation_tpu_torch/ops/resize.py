@@ -1,0 +1,63 @@
+"""Host-side bilinear resize with PyTorch ``align_corners=False`` semantics.
+
+Counterpart of ``resize_bilinear_np`` / ``resize_disparity_np`` in
+``stereo_depth_estimation_tpu/ops/resize.py``: half-pixel source centres, no
+anti-aliasing (the reference resizes with
+``F.interpolate(mode="bilinear", align_corners=False)``). Each 1-D resample is
+a small dense matrix with two non-zeros per row, applied as two matrix
+products. Disparity values are also scaled by the width ratio, because
+disparity is measured in horizontal pixels.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+
+@functools.lru_cache(maxsize=128)
+def _resample_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) float32 matrix for 1-D bilinear resampling.
+
+    Source coordinate for output i: ``max(0, (i + 0.5) * in/out - 0.5)``,
+    PyTorch's area_pixel_compute_source_index (align_corners=False).
+    """
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.maximum((dst + 0.5) * scale - 0.5, 0.0)
+    i0 = np.floor(src).astype(np.int64)
+    i0 = np.minimum(i0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    w1 = (src - i0).astype(np.float64)
+    w0 = 1.0 - w1
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    mat[np.arange(out_size), i0] += w0
+    mat[np.arange(out_size), i1] += w1
+    return mat.astype(np.float32)
+
+
+def resize_bilinear_np(image: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """Resize ``(H, W)`` or ``(H, W, C)`` float arrays."""
+    h_out, w_out = out_hw
+    h_in, w_in = image.shape[0], image.shape[1]
+    a_h = _resample_matrix(h_in, h_out)
+    a_w = _resample_matrix(w_in, w_out)
+    x = image.astype(np.float32)
+    if x.ndim == 2:
+        x = x[..., None]
+    rows = (a_h @ x.reshape(h_in, -1)).reshape(h_out, w_in, -1)
+    out = np.tensordot(rows, a_w, axes=([1], [1]))  # (h_out, c, w_out)
+    out = np.moveaxis(out, -1, 1)  # (h_out, w_out, c)
+    if image.ndim == 2:
+        return out[..., 0]
+    return out
+
+
+def resize_disparity_np(
+    disparity: np.ndarray, out_hw: tuple[int, int], src_width: int | None = None
+) -> np.ndarray:
+    """Resize ``(H, W)`` disparity and scale its values by ``out_w / src_w``."""
+    w_in = src_width if src_width is not None else disparity.shape[-1]
+    resized = resize_bilinear_np(disparity, out_hw)
+    return resized * np.float32(out_hw[1] / float(w_in))

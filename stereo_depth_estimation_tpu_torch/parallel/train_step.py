@@ -215,10 +215,12 @@ def make_train_step(
 class DeviceDataTrainStep:
     """ONE train step per call over a DEVICE-RESIDENT dataset.
 
-    Each epoch draws a ``torch.randperm`` of the samples from the state's
-    generator; step ``pos`` of the epoch gathers rows
+    Each pass over the payload (``steps_per_epoch`` calls, counted by this
+    object) starts by drawing a ``torch.randperm`` of the samples from the
+    state's generator; call ``pos`` of the pass gathers rows
     ``perm[pos*B:(pos+1)*B]`` with ``index_select`` on the device. Nothing
-    crosses to the host per step."""
+    crosses to the host per step. The permutation comes from the train
+    state's generator, so a resumed run continues its random stream."""
 
     def __init__(
         self,
@@ -237,18 +239,18 @@ class DeviceDataTrainStep:
         self.targets = targets
         self.batch_size = batch_size
         self.step_fn = step_fn
-        self._epoch = -1
+        self._calls = 0
         self._perm: torch.Tensor | None = None
 
     def gather(self, state: TrainState) -> Batch:
-        epoch, pos = divmod(state.step, self.steps_per_epoch)
-        if epoch != self._epoch or self._perm is None:
+        pos = self._calls % self.steps_per_epoch
+        if pos == 0:
             self._perm = torch.randperm(
                 self.images_u8.shape[0],
                 generator=state.generator,
                 device=self.images_u8.device,
             )
-            self._epoch = epoch
+        self._calls += 1
         idx = self._perm[pos * self.batch_size : (pos + 1) * self.batch_size]
         return {
             "input": self.images_u8.index_select(0, idx),

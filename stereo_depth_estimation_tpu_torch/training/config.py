@@ -1,0 +1,197 @@
+"""Training configuration: the JAX trainer's dataclass, flags and defaults.
+
+Counterpart of ``stereo_depth_estimation_tpu/training/config.py``: the same
+field names, flags and defaults, so a JAX command line parses here. Flags
+whose mechanism the port does not have yet (meshes, spatial sharding,
+multihost, compilation, the executable cache) are parsed all the same; the
+trainer raises on a value that would change what runs
+(``trainer.check_supported``).
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import asdict, dataclass, fields
+
+
+@dataclass
+class TrainConfig:
+    dataset_root: str = "/mnt/bulk2/NVidia Foundation Stereo"
+    height: int = 240
+    width: int = 320
+    epochs: int = 100
+    batch_size: int = 30
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    lr_schedule: str = "constant"  # constant|cosine
+    lr_warmup_steps: int = 0
+    num_workers: int = 4
+    val_fraction: float = 0.1
+    max_samples: int = 0
+    seed: int = 42
+    device: str = "auto"  # auto|cuda|cpu; auto is the card
+    mlflow_tracking_uri: str = "sqlite:///mlflow.db"
+    mlflow_experiment: str = "foundation-stereo-depth"
+    run_name: str | None = None
+    output_dir: str = "./outputs"
+    cache_root: str | None = None
+    require_cache: bool = False
+    compile: bool = False
+    compile_mode: str = "default"
+    compile_backend: str = "xla"
+    augment: bool = True
+    brightness_jitter: float = 0.25
+    contrast_jitter: float = 0.25
+    saturation_jitter: float = 0.25
+    hue_jitter: float = 0.09
+    gamma_jitter: float = 0.2
+    noise_std_max: float = 0.05
+    blur_prob: float = 0.03
+    blur_sigma_max: float = 1.0
+    blur_kernel_size: int = 5
+    augment_impl: str = "auto"  # auto|xla|pallas: auto, plain, the CUDA kernel
+    input_precision: str = "uint8"  # uint8|float32
+    base_channels: int = 32  # UNet width; 32 = reference spec (7.76M params)
+    mesh_devices: int = 0  # 0 = all visible devices; the port runs on one
+    spatial_devices: int = 1
+    compute_dtype: str = "bfloat16"
+    packed_cache_root: str | None = None
+    device_resident: str = "auto"  # auto|on|off
+    hbm_window_gb: float = 4.0  # device byte budget for resident windows
+    aot_cache: str = "auto"
+    aot_cache_multihost: bool = False
+    resume: str | None = None  # a last.pt / best.pt to resume from
+    init_checkpoint: str | None = None  # a reference .pt: weights only
+    log_every_batches: int = 10
+    preview_samples: int = 8
+    profile_dir: str | None = None
+    profile_steps: int = 10
+    multihost: bool = False
+    coordinator_address: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+def parse_args(argv: list[str] | None = None) -> TrainConfig:
+    defaults = TrainConfig()
+    parser = argparse.ArgumentParser(
+        description="Train the stereo disparity model on FoundationStereo "
+                    "(PyTorch, one NVIDIA GPU)."
+    )
+    add = parser.add_argument
+    add("--dataset-root", type=str, default=defaults.dataset_root,
+        help="Path to FoundationStereo dataset root.")
+    add("--height", type=int, default=defaults.height, help="Training image height.")
+    add("--width", type=int, default=defaults.width, help="Training image width.")
+    add("--epochs", type=int, default=defaults.epochs, help="Number of epochs.")
+    add("--batch-size", type=int, default=defaults.batch_size, help="Batch size.")
+    add("--lr", type=float, default=defaults.lr, help="Learning rate.")
+    add("--weight-decay", type=float, default=defaults.weight_decay, help="Weight decay.")
+    add("--lr-schedule", type=str, default=defaults.lr_schedule,
+        choices=("constant", "cosine"), dest="lr_schedule",
+        help="LR schedule; cosine decays to 0 over the configured epochs.")
+    add("--lr-warmup-steps", type=int, default=defaults.lr_warmup_steps,
+        dest="lr_warmup_steps",
+        help="Linear warmup steps before the cosine decay (0 = none).")
+    add("--num-workers", type=int, default=defaults.num_workers,
+        help="Host batch-assembly worker threads.")
+    add("--val-fraction", type=float, default=defaults.val_fraction,
+        help="Validation fraction in [0, 1).")
+    add("--max-samples", type=int, default=defaults.max_samples,
+        help="Optional cap on number of samples.")
+    add("--seed", type=int, default=defaults.seed, help="Random seed.")
+    add("--device", type=str, default=defaults.device,
+        help='Device: "auto" or "cuda" (the GPU; raises without CUDA) or "cpu".')
+    add("--mlflow-tracking-uri", type=str, default=defaults.mlflow_tracking_uri,
+        help="MLflow tracking URI (FileStore/JSONL if mlflow is unavailable).")
+    add("--mlflow-experiment", type=str, default=defaults.mlflow_experiment,
+        help="MLflow experiment name.")
+    add("--run-name", type=str, default=None, help="Optional run name.")
+    add("--output-dir", type=str, default=defaults.output_dir,
+        help="Directory for checkpoints/config.")
+    add("--cache-root", type=str, default=None,
+        help="Optional npz cache root (read-through).")
+    add("--require-cache", action="store_true",
+        help="Fail if any requested sample is missing from --cache-root.")
+    add("--compile", action=argparse.BooleanOptionalAction, default=defaults.compile,
+        help="Not ported: the port runs eagerly; --compile raises.")
+    add("--compile-mode", type=str, default=defaults.compile_mode,
+        choices=("default", "reduce-overhead", "max-autotune"),
+        help="Not ported: only 'default' is accepted.")
+    add("--compile-backend", type=str, default=defaults.compile_backend,
+        help="Not ported: only 'xla' (the default) is accepted.")
+    add("--augment", action=argparse.BooleanOptionalAction, default=defaults.augment,
+        help="Enable asymmetric RGB augmentations independently on left/right.")
+    add("--brightness-jitter", type=float, default=defaults.brightness_jitter,
+        help="Brightness jitter; factor sampled from [1-x, 1+x].")
+    add("--contrast-jitter", type=float, default=defaults.contrast_jitter,
+        help="Contrast jitter; factor sampled from [1-x, 1+x].")
+    add("--saturation-jitter", type=float, default=defaults.saturation_jitter,
+        help="Saturation jitter; factor sampled from [1-x, 1+x].")
+    add("--hue-jitter", type=float, default=defaults.hue_jitter,
+        help="Hue jitter; shift sampled from [-x, x].")
+    add("--gamma-jitter", type=float, default=defaults.gamma_jitter,
+        help="Gamma jitter; factor sampled from [max(0.1, 1-x), 1+x].")
+    add("--noise-std-max", type=float, default=defaults.noise_std_max,
+        help="Max stddev for additive Gaussian noise sampled in [0, x].")
+    add("--blur-prob", type=float, default=defaults.blur_prob,
+        help="Probability of applying Gaussian blur per image.")
+    add("--blur-sigma-max", type=float, default=defaults.blur_sigma_max,
+        help="Max sigma for Gaussian blur (<= 0 disables blur).")
+    add("--blur-kernel-size", type=int, default=defaults.blur_kernel_size,
+        help="Gaussian blur kernel size (odd integer >= 3).")
+    add("--augment-impl", type=str, default=defaults.augment_impl,
+        choices=("auto", "xla", "pallas"), dest="augment_impl",
+        help="Augmentation implementation: auto (the CUDA kernel on the GPU), "
+             "pallas (the CUDA kernel, raises on the CPU), xla (plain PyTorch).")
+    add("--input-precision", type=str, default=defaults.input_precision,
+        choices=("uint8", "float32"), dest="input_precision",
+        help="Host batch image precision (float32 is not usable with the "
+             "packed cache).")
+    add("--base-channels", type=int, default=defaults.base_channels,
+        help="UNet width multiplier (32 = reference architecture).")
+    add("--mesh-devices", type=int, default=defaults.mesh_devices,
+        help="Devices to train on; the port trains on one (0 or 1).")
+    add("--spatial-devices", type=int, default=defaults.spatial_devices,
+        help="Not ported: only 1 is accepted.")
+    add("--compute-dtype", type=str, default=defaults.compute_dtype,
+        choices=("bfloat16", "float32"), help="Network compute dtype.")
+    add("--packed-cache-root", type=str, default=None,
+        help="Packed array cache (fast path); built automatically if missing.")
+    add("--device-resident", type=str, default=defaults.device_resident,
+        choices=("auto", "on", "off"), dest="device_resident",
+        help="Stage the packed training set into device memory (pinned when "
+             "it fits --hbm-window-gb, else rotating windows).")
+    add("--hbm-window-gb", type=float, default=defaults.hbm_window_gb,
+        dest="hbm_window_gb",
+        help="Device memory budget (GB) for device-resident windows.")
+    add("--aot-cache", type=str, default=defaults.aot_cache, dest="aot_cache",
+        help="'auto' or 'off' are accepted (an eager port has no executable "
+             "to cache); a directory raises.")
+    add("--aot-cache-multihost", action="store_true",
+        dest="aot_cache_multihost", help="Not ported: raises.")
+    add("--resume", type=str, default=None,
+        help="Checkpoint (.pt) to resume training from.")
+    add("--init-checkpoint", type=str, default=None, dest="init_checkpoint",
+        help="Initialise model weights from a reference-format .pt (also one "
+             "written by the JAX package's export); optimizer and epoch "
+             "counter start fresh.")
+    add("--log-every-batches", type=int, default=defaults.log_every_batches,
+        help="Step-metric logging cadence in training batches.")
+    add("--preview-samples", type=int, default=defaults.preview_samples,
+        help="Fixed preview sample count logged each epoch.")
+    add("--profile-dir", type=str, default=None,
+        help="Write a torch.profiler trace of early training batches here.")
+    add("--profile-steps", type=int, default=defaults.profile_steps,
+        help="Training batches to capture when --profile-dir is set.")
+    add("--multihost", action="store_true", help="Not ported: raises.")
+    add("--coordinator-address", type=str, default=None, help="Not ported: raises.")
+    add("--num-processes", type=int, default=None, help="Not ported: raises.")
+    add("--process-id", type=int, default=None, help="Not ported: raises.")
+    namespace = parser.parse_args(argv)
+    values = vars(namespace)
+    known = {f.name for f in fields(TrainConfig)}
+    return TrainConfig(**{k: v for k, v in values.items() if k in known})
