@@ -10,16 +10,18 @@ It builds the CUDA kernels from ``stereo_depth_estimation_tpu_torch/csrc``
 plain PyTorch version on the card, and drives the port's two paths:
 
 - the augmented StereoUNet train step at full width (base 32, 240x320, batch
-  128, bf16, over a device-resident uint8 payload), then predict: kernel K1
-  (augmentation) once per step, K2/K3 (the model's four 2x2 max pools,
-  forward and backward) four times each per step, K2 four times per predict;
+  128, bf16, over a device-resident uint8 payload), then predict: the
+  augmentation's gray-mean kernel and kernel K1 (the colour chain) once per
+  step, K2/K3 (the model's four 2x2 max pools, forward and backward) four
+  times each per step, K2 four times per predict;
 - the trainer CLI on the packed cache: a synthetic FoundationStereo-layout
   dataset, two epochs device-resident (pinned), then a resumed third.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
-and a PyTorch library call where one computes the same function, and prints
-one JSON line with the kernel list and, last, the result line. Any failed
+and a PyTorch library call where one computes the same function, times the
+augmentation layer part by part (``augment_timing.py``), and prints one JSON
+line with the kernel list and, last, the result line. Any failed
 check raises, so the exit code is non-zero and no result line is printed.
 Without CUDA, or outside the repository, it exits non-zero too.
 """
@@ -40,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+from augment_timing import describe as describe_augmentation
+from augment_timing import time_augmentation, time_ms
 from stereo_depth_estimation_tpu_torch import _build
 from stereo_depth_estimation_tpu_torch.data.packed_cache import PackedCache
 from stereo_depth_estimation_tpu_torch.data.samples import discover_samples, split_samples
@@ -48,6 +52,8 @@ from stereo_depth_estimation_tpu_torch.ops import pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     _pack_factors,
+    gray_means_cuda,
+    gray_means_plain,
     pointwise_chain_cuda,
     pointwise_chain_plain,
 )
@@ -74,6 +80,10 @@ TRAIN_SAMPLES, TRAIN_SOURCE_HW, TRAIN_BATCH = 160, (288, 384), 32
 # The train step before the pools ran on K2/K3, same path and card
 # (PERF.md section 5, H100 80GB HBM3 at 700 W).
 BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
+# The augmentation before K1's redesign and the gray-mean kernel, same shape
+# and card (PERF.md section 6, H100 80GB HBM3 at 700 W; the whole call as
+# first read, before timed launches were queued behind a spin).
+BEFORE_AUGMENT_REDESIGN = "K1 442.0 us, whole augment_stereo_batch_fused 2212.7 us"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -84,6 +94,10 @@ F32_FLOPS = 67e12
 # decode 6, brightness 9, contrast 14, saturation 19, rgb->hsv 44,
 # hsv->rgb + gamma 50.
 CHAIN_OPS_PER_PIXEL_VIEW = 142
+# Operations per input byte of the gray means, counted the same way:
+# decode 2 (int->float, * 1/255), brightness 3 (mul, min, max), weight 1,
+# sum 1.
+GRAY_MEAN_OPS_PER_BYTE = 7
 
 # Reference step, card vs CPU (f32, TF32 off): each parameter's gradient
 # within 5% of its norm, the norm floored at 1% of the largest one's. Where
@@ -96,11 +110,30 @@ CHAIN_OPS_PER_PIXEL_VIEW = 142
 # norm of every first-level leaf.
 GRAD_RTOL, GRAD_FLOOR = 0.05, 1e-2
 
-# Kernel vs plain: f32 outputs within 1e-5 (FMA contraction and powf/expf
-# ulps; near 0, the min channel of hsv->rgb is a cancellation that
-# x^gamma amplifies, to ~5e-6). bf16 outputs within one bf16 ulp of the
-# larger value plus that f32 tolerance.
+# Kernel vs plain: f32 outputs within 1e-5 (FMA contraction, the kernel's
+# approximate ex2/lg2/rcp and expf ulps; near 0, the min channel of hsv->rgb
+# is a cancellation that x^gamma amplifies, to ~5e-6). bf16 outputs within one bf16 ulp of the
+# larger value plus that f32 tolerance. The gray means (each <= 1) within
+# 1e-5 too, and bitwise equal on two runs of the kernel.
 F32_TOL = 1e-5
+
+# Hand-set factors for the fast-math edge cases, cycled over a batch's views:
+# the ends of the default ranges (brightness 0.75/1.25, gamma exactly
+# 0.8/1.2, hue shifts of +-0.09) and identities.
+EDGE_FACTORS = {
+    "brightness": [0.75, 1.25, 1.0],
+    "contrast": [0.75, 1.25, 1.0, 1.1],
+    "saturation": [0.75, 1.25, 1.0],
+    "hue": [0.09, -0.09, 0.0, 0.05],
+    "gamma": [0.8, 1.2, 1.0],
+    "blur_on": [1.0, 0.0, 0.0, 1.0, 1.0],
+    "blur_sigma": [0.3, 1.0],
+    "noise_std": [0.0],
+}
+# Saturation factors that pull every channel to within ~1e-6 of the luma, so
+# that channels fall within the max-channel rule's eps of the max.
+NEAR_MAX_SATURATION = [1e-6, 2e-6, 5e-7, 0.0]
+EDGE_KINDS = ("0/255", "gray", "near max", "hue wrap")
 
 
 class SmokeFailure(RuntimeError):
@@ -128,7 +161,9 @@ def kernel_case(gen, n, h, w, blur_prob, config=None):
     return images, packed, blur_k
 
 
-def compare_kernel(images, packed, blur_k, out_dtype) -> float:
+def compare_kernel(images, packed, blur_k, out_dtype) -> tuple[float, torch.Tensor]:
+    """K1 against its plain version on the same inputs; returns the largest
+    error and the kernel's output."""
     out = pointwise_chain_cuda(images, packed, blur_k, out_dtype)
     ref = pointwise_chain_plain(images, packed, blur_k, out_dtype)
     torch.cuda.synchronize()
@@ -141,40 +176,120 @@ def compare_kernel(images, packed, blur_k, out_dtype) -> float:
         ulp = torch.maximum(bf16_ulp(out.float()), bf16_ulp(ref.float()))
         check(bool((err <= ulp + F32_TOL).all()),
               f"kernel vs plain bf16 err {float(err.max())} > 1 ulp + {F32_TOL:g}")
-    return float(err.max())
+    return float(err.max()), out
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def misaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of the uint8 batch ``x`` whose data starts one pixel (6 bytes)
+    past a 16-byte boundary: the kernels' one-pixel-a-thread path."""
+    buf = torch.empty(x.numel() + 6, dtype=x.dtype, device=x.device)
+    buf[6:].copy_(x.flatten())
+    return buf[6:].view(x.shape)
+
+
+def edge_case(gen, kind: str, n: int, h: int, w: int):
+    """A uint8 batch of one edge-case ``kind`` and its packed hand-set factors."""
+    u8 = dict(dtype=torch.uint8, device="cuda", generator=gen)
+    if kind == "0/255":  # the darkest and brightest pixels; image 0 all 0, image 1 all 255
+        images = torch.randint(0, 2, (n, h, w, 6), **u8) * 255
+        images[0], images[1] = 0, 255
+    elif kind == "gray":  # r == g == b in both views: the eqc path
+        images = torch.randint(0, 256, (n, h, w, 2), **u8).repeat_interleave(3, dim=-1)
+    elif kind == "near max":
+        images = torch.randint(0, 256, (n, h, w, 6), **u8)
+    else:  # "hue wrap": red maxima with green and blue close, so h lies near 0 or 1
+        r = torch.randint(150, 256, (n, h, w, 2, 1), **u8)
+        gb = r - torch.randint(0, 40, (n, h, w, 2, 2), **u8)
+        images = torch.cat([r, gb], dim=-1).flatten(-2)
+    lists = dict(EDGE_FACTORS)
+    if kind == "near max":
+        lists["saturation"] = NEAR_MAX_SATURATION
+    factors = {name: torch.tensor([v[i % len(v)] for i in range(2 * n)], device="cuda")
+               for name, v in lists.items()}
+    factors["blur_on"] = factors["blur_on"] > 0
+    return images, _pack_factors(images, factors, n, gray_means_plain)
 
 
 def phase_kernel_checks() -> dict[tuple, float]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errors = {}
+    dtypes = (torch.float32, torch.bfloat16)
     cases = [(BATCH, *HW, bp) for bp in (0.0, 0.03, 1.0)]
     # Ragged sides, the smallest image k=5 reflect padding allows, and a
     # resolution above the TPU kernel's whole-image limit: one kernel for all.
     cases += [(2, 37, 53, 0.0), (2, 37, 53, 1.0), (2, 3, 3, 1.0), (2, 480, 640, 1.0)]
     for n, h, w, bp in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             images, packed, blur_k = kernel_case(gen, n, h, w, bp)
             blurred = int((packed[:, [6, 14]] > 0).sum()) if blur_k else 0
-            err = compare_kernel(images, packed, blur_k, dtype)
+            err, _ = compare_kernel(images, packed, blur_k, dtype)
             tol = f"{F32_TOL:g}" if dtype == torch.float32 else f"1 bf16 ulp + {F32_TOL:g}"
             print(f"kernel check: {n}x{h}x{w} blur_prob={bp} blur_k={blur_k} "
                   f"blurred_views={blurred} out={str(dtype).split('.')[-1]} "
                   f"max_abs_err={err:.3g} tol={tol} ok")
             errors[(n, h, w, bp, dtype)] = err
+
+    # The fast math's edge cases at the same tolerances, on the 16-byte path
+    # (4x40x56) and the one-pixel path (a ragged 3x37x53), with and without
+    # the blur; an all-0 image must give exact zeros (x^g at x = 0).
+    for kind in EDGE_KINDS:
+        worst = 0.0
+        for n, h, w in ((4, 40, 56), (3, 37, 53)):
+            images, packed = edge_case(gen, kind, n, h, w)
+            for blur_k in (0, 5):
+                for dtype in dtypes:
+                    err, out = compare_kernel(images, packed, blur_k, dtype)
+                    worst = max(worst, err)
+                    if kind == "0/255":
+                        check(bool((out[0] == 0).all()), f"K1 of an all-0 image is not 0 "
+                              f"({n}x{h}x{w} blur_k={blur_k} {dtype})")
+        print(f"kernel check: edge case {kind!r} at 4x40x56 and 3x37x53, blur_k 0 and 5, "
+              f"f32 and bf16 out: max_abs_err={worst:.3g} (same tolerances)"
+              + ("; an all-0 image gives exact zeros" if kind == "0/255" else "") + " ok")
+        errors[("edge", kind)] = worst
+    # A misaligned input view: the one-pixel path at a shape whose H*W alone
+    # would take the 16-byte path.
+    for bp in (0.0, 1.0):
+        images, packed, blur_k = kernel_case(gen, 2, *HW, bp)
+        images = misaligned_copy(images)
+        for dtype in dtypes:
+            errors[("misaligned", bp, dtype)], _ = compare_kernel(images, packed, blur_k, dtype)
+        print(f"kernel check: misaligned 2x{HW[0]}x{HW[1]} input (one pixel a thread), "
+              f"blur_prob={bp}, f32 and bf16 out: max_abs_err="
+              f"{max(errors[('misaligned', bp, d)] for d in dtypes):.3g} (same tolerances) ok")
     return errors
+
+
+def phase_gray_mean_checks() -> float:
+    """The gray-mean kernel against its plain version (within F32_TOL) and
+    against a second run of itself (bitwise), on the 16-byte path, ragged
+    shapes and a misaligned view; returns the main shape's error."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    main_err = 0.0
+    cases = [((BATCH, *HW), False), ((3, 37, 53), False), ((2, 3, 3), False),
+             ((2, *HW), True)]
+    for shape, off in cases:
+        images = torch.randint(0, 256, (*shape, 6), dtype=torch.uint8, device="cuda",
+                               generator=gen)
+        if off:
+            images = misaligned_copy(images)
+        brightness = torch.rand(2 * shape[0], device="cuda", generator=gen) * 0.5 + 0.75
+        brightness[:4] = torch.tensor([0.75, 1.25, 0.75, 1.25])  # the range's ends
+        first = gray_means_cuda(images, brightness)
+        second = gray_means_cuda(images, brightness)
+        ref = gray_means_plain(images, brightness)
+        torch.cuda.synchronize()
+        err = float((first - ref).abs().max())
+        check(err <= F32_TOL, f"gray means vs plain err {err} at {shape}")
+        check(torch.equal(first.view(torch.int32), second.view(torch.int32)),
+              f"gray means differ between two runs at {shape}")
+        if shape == (BATCH, *HW):
+            main_err = err
+        print(f"gray-mean check: {'x'.join(map(str, shape))}{' misaligned' if off else ''}: "
+              f"max_abs_err={err:.3g} tol={F32_TOL:g}, two runs bitwise equal ok")
+    return main_err
 
 
 def tie_rich(gen, shape, dtype, nan: bool = False, misaligned: bool = False) -> torch.Tensor:
@@ -348,10 +463,10 @@ def phase_trainer() -> dict[str, int]:
             check(summary["device_resident"] == "pinned",
                   f"trainer staged the set as {summary['device_resident']}, not pinned")
             steps = epochs * steps_per_epoch
-            # Per epoch: K1 and 4 K3 per train step; 4 K2 per train step,
-            # per validation batch and per preview predict.
-            expected = {"K1": steps, "K2": 4 * (steps + epochs * (val_batches + 1)),
-                        "K3": 4 * steps}
+            # Per epoch: the gray means, K1 and 4 K3 per train step; 4 K2 per
+            # train step, per validation batch and per preview predict.
+            expected = {"GM": steps, "K1": steps,
+                        "K2": 4 * (steps + epochs * (val_batches + 1)), "K3": 4 * steps}
             got = {k: run_counts[k] for k in expected}
             check(got == expected, f"trainer launches {got}, expected {expected}")
             for epoch in summary["epochs"]:
@@ -479,6 +594,7 @@ def phase_reference_step() -> None:
 
 
 def reset_counts() -> None:
+    gray_means_cuda.launches = 0
     pointwise_chain_cuda.launches = 0
     pool.maxpool2x2_fwd_cuda.launches = 0
     pool.maxpool2x2_bwd_cuda.launches = 0
@@ -486,8 +602,9 @@ def reset_counts() -> None:
 
 
 def counts() -> dict[str, int]:
-    return {"K1": pointwise_chain_cuda.launches, "K2": pool.maxpool2x2_fwd_cuda.launches,
-            "K3": pool.maxpool2x2_bwd_cuda.launches, "dy_copies": pool.MaxPool2x2.dy_copies}
+    return {"GM": gray_means_cuda.launches, "K1": pointwise_chain_cuda.launches,
+            "K2": pool.maxpool2x2_fwd_cuda.launches, "K3": pool.maxpool2x2_bwd_cuda.launches,
+            "dy_copies": pool.MaxPool2x2.dy_copies}
 
 
 def phase_train(state, runner) -> tuple[float, list[LossStats]]:
@@ -507,6 +624,7 @@ def phase_train(state, runner) -> tuple[float, list[LossStats]]:
 
 
 KERNEL_GROUPS = (  # first match names a device kernel's group
+    ("augment gray means", ("gray_means_kernel",)),
     ("K1 augment", ("augment_kernel",)),
     ("K2 max pool fwd", ("maxpool2x2_fwd",)),
     ("K3 max pool bwd", ("maxpool2x2_bwd",)),
@@ -590,7 +708,8 @@ def main() -> int:
     print(f"build: total {marks[-1][1] - marks[0][1]:.1f} s")
 
     errors = phase_kernel_checks()
-    mark("K1 checks")
+    gray_mean_err = phase_gray_mean_checks()
+    mark("K1 and gray-mean checks")
     phase_pool_checks()
     mark("K2/K3 checks")
     phase_reference_step()
@@ -613,7 +732,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ms_step, stats = phase_train(state, runner)
     main_counts = counts()
-    expected = {"K1": STEPS, "K2": 4 * STEPS, "K3": 4 * STEPS}
+    expected = {"GM": STEPS, "K1": STEPS, "K2": 4 * STEPS, "K3": 4 * STEPS}
     check(all(main_counts[k] == n for k, n in expected.items()),
           f"kernel launches {main_counts} in {STEPS} steps, expected {expected}")
     launches = main_counts["K1"]
@@ -621,7 +740,8 @@ def main() -> int:
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     print(f"train: StereoUNet base 32 bf16, batch {BATCH}, {HW[0]}x{HW[1]}, payload "
           f"{PAYLOAD} on device, {STEPS} steps after {WARMUP} warm-up: {ms_step:.2f} ms/step, "
-          f"{BATCH * 1e3 / ms_step:.1f} pairs/s, kernel launches K1 {main_counts['K1']} K2 "
+          f"{BATCH * 1e3 / ms_step:.1f} pairs/s, kernel launches gray means "
+          f"{main_counts['GM']} K1 {main_counts['K1']} K2 "
           f"{main_counts['K2']} K3 {main_counts['K3']}, incoming pool gradients copied to "
           f"channels_last {main_counts['dy_copies']} times, losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}, peak memory "
@@ -638,7 +758,7 @@ def main() -> int:
     disp, logvar = predict(batch)
     torch.cuda.synchronize()
     predict_counts = counts()
-    check(predict_counts == {"K1": 0, "K2": 4, "K3": 0, "dy_copies": 0},
+    check(predict_counts == {"GM": 0, "K1": 0, "K2": 4, "K3": 0, "dy_copies": 0},
           f"predict launches {predict_counts}, expected K2 4")
     check(tuple(disp.shape) == tuple(logvar.shape) == (BATCH, *HW), "predict shapes")
     check(bool(torch.isfinite(disp).all() and torch.isfinite(logvar).all()), "predict not finite")
@@ -659,6 +779,18 @@ def main() -> int:
     ms_kernel = time_ms(lambda: pointwise_chain_cuda(x, packed, blur_k, torch.bfloat16), 20)
     ms_plain = time_ms(lambda: pointwise_chain_plain(x, packed, blur_k, torch.bfloat16), 3)
     ms_kernel_f32 = time_ms(lambda: pointwise_chain_cuda(x, packed, blur_k, torch.float32), 20)
+    # The same kernel one pixel a thread (2-byte loads, 4-byte stores): the
+    # new arithmetic without the 16-byte I/O.
+    x_off = misaligned_copy(x)
+    ms_one_pixel = time_ms(
+        lambda: pointwise_chain_cuda(x_off, packed, blur_k, torch.bfloat16), 20)
+    # Without the blur's tiled path (blur_k = 0): the flat path alone; and
+    # with every view blurred: the tiled path alone.
+    ms_no_blur = time_ms(lambda: pointwise_chain_cuda(x, packed, 0, torch.bfloat16), 20)
+    all_blurred = packed.clone()
+    all_blurred[:, [6, 14]] = 1.0
+    ms_all_blur = time_ms(
+        lambda: pointwise_chain_cuda(x, all_blurred, blur_k, torch.bfloat16), 5)
     n, (h, w) = BATCH, HW
     blurred_views = int((packed[:, [6, 14]] > 0).sum())
     nbytes = n * h * w * 6 * (1 + 2) + packed.numel() * 4
@@ -672,7 +804,9 @@ def main() -> int:
           f"bound {bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB -> "
           f"{bytes_ms * 1e3:.1f} us; {ops / 1e9:.2f} G ops -> {ops_ms * 1e3:.1f} us), "
           f"{100 * bound_ms / ms_kernel:.1f}% of bound; f32 out {ms_kernel_f32 * 1e3:.1f} us "
-          f"(bytes bound {f32_bound_ms * 1e3:.1f} us); launches per step "
+          f"(bytes bound {f32_bound_ms * 1e3:.1f} us); one pixel a thread (input off "
+          f"16-byte alignment) {ms_one_pixel * 1e3:.1f} us; blur off {ms_no_blur * 1e3:.1f} "
+          f"us; every view blurred {ms_all_blur * 1e3:.1f} us; launches per step "
           f"{launches / STEPS:g}")
 
     kernels = [{
@@ -688,9 +822,38 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this chain
     }]
-    del x, packed
+    del x, x_off, packed, all_blurred
 
-    mark("K1 timing")
+    # The augmentation layer part by part, the gray-mean kernel against its
+    # bound: its input read once (and 2N factors in, 2N means out).
+    aug = time_augmentation()
+    print(f"{describe_augmentation(aug)} (before K1's redesign and the gray-mean "
+          f"kernel: {BEFORE_AUGMENT_REDESIGN})")
+    gm_bytes = n * h * w * 6 + 4 * n * 4
+    gm_bytes_ms = gm_bytes / HBM_BYTES_PER_S * 1e3
+    gm_ops_ms = n * h * w * 6 * GRAY_MEAN_OPS_PER_BYTE / F32_FLOPS * 1e3
+    gm_bound_ms = max(gm_bytes_ms, gm_ops_ms)
+    print(f"gray-mean timing: {n}x{h}x{w}: kernel {aug['pre_pass_kernel'] * 1e3:.1f} us, "
+          f"plain {aug['pre_pass_plain'] * 1e3:.1f} us, bound {gm_bound_ms * 1e3:.1f} us "
+          f"({gm_bytes / 1e6:.1f} MB -> {gm_bytes_ms * 1e3:.1f} us; ops -> "
+          f"{gm_ops_ms * 1e3:.1f} us), {100 * gm_bound_ms / aug['pre_pass_kernel']:.1f}% of "
+          f"bound; launches per step {main_counts['GM'] / STEPS:g}")
+    kernels.append({
+        "name": "augment_gray_means",
+        "route": "cuda",
+        "source": "stereo_depth_estimation_tpu_torch/csrc/augment.cu",
+        "replaces": "stereo_depth_estimation_tpu/ops/augment_pallas.py:213 _pack_factors "
+                    "(XLA reduce)",
+        "launches": main_counts["GM"],
+        "max_abs_err": gray_mean_err,
+        "ms": aug["pre_pass_kernel"],
+        "plain_ms": aug["pre_pass_plain"],
+        "bound_ms": gm_bound_ms,
+        "bound_by": "bytes" if gm_bytes_ms >= gm_ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes these means
+    })
+
+    mark("augmentation timing")
     pool_times = phase_pool_timing()
     mark("K2/K3 timing")
     # The trainer as a user runs it, without cuDNN's autotuning (the trainer

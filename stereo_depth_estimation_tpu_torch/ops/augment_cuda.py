@@ -1,16 +1,18 @@
-"""The augmentation chain as one hand-written CUDA kernel (``csrc/augment.cu``).
+"""The augmentation chain on two hand-written CUDA kernels (``csrc/augment.cu``).
 
 Counterpart of ``stereo_depth_estimation_tpu/ops/augment_pallas.py``: the
 (N, H, W, 6) uint8 stereo batch goes through the colour chain, gamma and the
 probabilistic blur of both views in one pass, written as f32 or bf16 in the
-same NHWC layout. Factor sampling, the gray-mean pre-pass (``_pack_factors``)
-and the noise + clamp epilogue stay plain PyTorch, as they are plain XLA in
-the JAX package.
+same NHWC layout. The contrast blend's per-view gray means come first, from
+a reduction kernel that reads the batch once (the XLA reduce of the JAX
+package's ``_pack_factors``). Factor sampling and the noise + clamp epilogue
+stay plain PyTorch, as they are plain XLA in the JAX package.
 
-``pointwise_chain`` takes the plain version (``pointwise_chain_plain``) for a
-tensor on the CPU, and launches the kernel for a CUDA tensor; there is no
-fallback from the kernel to the plain version. ``pointwise_chain_cuda``
-launches the kernel or raises, and counts its launches in ``.launches``.
+``pointwise_chain`` and ``gray_means`` take the plain versions
+(``pointwise_chain_plain``, ``gray_means_plain``) for a tensor on the CPU,
+and launch the kernels for a CUDA tensor; there is no fallback from a kernel
+to its plain version. ``pointwise_chain_cuda`` and ``gray_means_cuda`` launch
+their kernel or raise, and count their launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -42,20 +44,32 @@ _F_PER_VIEW = 8
 MAX_BLUR_KERNEL = 15  # csrc/augment.cu kMaxHalf
 
 
-def _pack_factors(
-    images_u8: torch.Tensor, factors: dict[str, torch.Tensor], n: int
-) -> torch.Tensor:
-    """(N, 16) f32 per-image factor rows, left view then right; also computes
-    the contrast gray means (mean luma of the brightness-adjusted view)."""
-    h, w = images_u8.shape[1], images_u8.shape[2]
+def gray_means_plain(images_u8: torch.Tensor, brightness: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the gray-mean kernel: (N, H, W, 6) uint8 and
+    (2N,) brightness factors (left views, then right) -> (2N,) f32 mean luma
+    of each brightness-adjusted view, in the same order."""
+    n, h, w = images_u8.shape[:3]
     weights = torch.tensor(_GRAY_WEIGHTS, dtype=torch.float32, device=images_u8.device)
-    rows = []
-    for fv, sl in zip(split_views(factors, n), (slice(0, 3), slice(3, 6))):
+    means = []
+    for fb, sl in zip((brightness[:n], brightness[n:]), (slice(0, 3), slice(3, 6))):
         xb = (
-            fv["brightness"][:, None, None, None]
+            fb[:, None, None, None]
             * (images_u8[..., sl].to(torch.float32) * (1.0 / 255.0))
         ).clamp_(0.0, 1.0)
-        gray_mean = (xb * weights).sum(dim=(1, 2, 3)) / (h * w)
+        means.append((xb * weights).sum(dim=(1, 2, 3)) / (h * w))
+    return torch.cat(means)
+
+
+def _pack_factors(
+    images_u8: torch.Tensor, factors: dict[str, torch.Tensor], n: int,
+    means_fn=None,
+) -> torch.Tensor:
+    """(N, 16) f32 per-image factor rows, left view then right, with the
+    contrast gray means from ``means_fn`` (default: ``gray_means``, the
+    kernel for a CUDA tensor)."""
+    means = (means_fn or gray_means)(images_u8, factors["brightness"])
+    rows = []
+    for fv, gray_mean in zip(split_views(factors, n), (means[:n], means[n:])):
         rows.append(
             torch.stack(
                 [
@@ -93,29 +107,36 @@ def pointwise_chain_plain(
     return torch.cat(views, dim=-1).to(out_dtype)
 
 
-def _check_inputs(
-    images_u8: torch.Tensor, factors_packed: torch.Tensor, blur_k: int,
-    out_dtype: torch.dtype,
+def _check_images(
+    images_u8: torch.Tensor, other: torch.Tensor, name: str, shape: tuple[int, ...]
 ) -> None:
+    """A contiguous (N, H, W, 6) uint8 CUDA batch and a contiguous f32
+    tensor ``name`` of ``shape`` on its device."""
     if images_u8.device.type != "cuda":
         raise ValueError(
-            f"the CUDA augmentation kernel takes CUDA tensors, got {images_u8.device}"
+            f"the CUDA augmentation kernels take CUDA tensors, got {images_u8.device}"
         )
     if images_u8.dtype != torch.uint8 or images_u8.ndim != 4 or images_u8.shape[-1] != 6:
         raise ValueError(
             "images must be (N, H, W, 6) uint8, got "
             f"{tuple(images_u8.shape)} {images_u8.dtype}"
         )
-    n, h, w, _ = images_u8.shape
-    if factors_packed.dtype != torch.float32 or tuple(factors_packed.shape) != (n, 16):
+    if other.dtype != torch.float32 or tuple(other.shape) != shape:
         raise ValueError(
-            f"factors must be ({n}, 16) float32, got "
-            f"{tuple(factors_packed.shape)} {factors_packed.dtype}"
+            f"{name} must be {shape} float32, got {tuple(other.shape)} {other.dtype}"
         )
-    if factors_packed.device != images_u8.device:
-        raise ValueError("images and factors must be on the same device")
-    if not (images_u8.is_contiguous() and factors_packed.is_contiguous()):
-        raise ValueError("images and factors must be contiguous")
+    if other.device != images_u8.device:
+        raise ValueError(f"images and {name} must be on the same device")
+    if not (images_u8.is_contiguous() and other.is_contiguous()):
+        raise ValueError(f"images and {name} must be contiguous")
+
+
+def _check_inputs(
+    images_u8: torch.Tensor, factors_packed: torch.Tensor, blur_k: int,
+    out_dtype: torch.dtype,
+) -> None:
+    _check_images(images_u8, factors_packed, "factors", (images_u8.shape[0], 16))
+    n, h, w, _ = images_u8.shape
     if images_u8.data_ptr() % 2:
         raise ValueError("images must be 2-byte aligned")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -130,32 +151,43 @@ def _check_inputs(
         )
 
 
-class PointwiseChainKernel:
-    """Launches ``augment_pointwise_chain`` (``csrc/augment.cu``) on the current
-    stream. ``launches`` counts the launches, and nothing else."""
+class _LibraryKernel:
+    """One ``extern "C"`` launcher of ``csrc/augment.cu``, bound at first use.
+    ``launches`` counts its successful launches, and nothing else."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str, argtypes: list) -> None:
         self.launches = 0
+        self._name = name
+        self._argtypes = argtypes
         self._fn = None
         self._error_string = None
 
-    def _bind(self):
+    def _launch(self, device: torch.device, *args) -> None:
         if self._fn is None:
             lib = load_library("augment")
-            fn = lib.augment_pointwise_chain
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
-            ]
+            if lib.augment_max_blur_kernel() != MAX_BLUR_KERNEL:
+                raise RuntimeError("csrc/augment.cu and MAX_BLUR_KERNEL disagree")
+            fn = getattr(lib, self._name)
+            fn.argtypes = [*self._argtypes, ctypes.c_void_p]  # ..., stream
             fn.restype = ctypes.c_int
             err = lib.augment_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            if lib.augment_max_blur_kernel() != MAX_BLUR_KERNEL:
-                raise RuntimeError("csrc/augment.cu and MAX_BLUR_KERNEL disagree")
             self._fn, self._error_string = fn, err
-        return self._fn
+        with torch.cuda.device(device):
+            code = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            reason = self._error_string(code).decode()
+            raise RuntimeError(f"{self._name} launch failed: {reason}")
+        self.launches += 1
+
+
+class PointwiseChainKernel(_LibraryKernel):
+    """Launches ``augment_pointwise_chain`` (K1) on the current stream."""
+
+    def __init__(self) -> None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        super().__init__("augment_pointwise_chain", [ptr, ptr, ptr, i, i, i, i, i])
 
     def __call__(
         self,
@@ -168,22 +200,34 @@ class PointwiseChainKernel:
         out = torch.empty(images_u8.shape, dtype=out_dtype, device=images_u8.device)
         if out.numel() == 0:
             return out
-        fn = self._bind()
         n, h, w, _ = images_u8.shape
-        with torch.cuda.device(images_u8.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = fn(
-                images_u8.data_ptr(), factors_packed.data_ptr(), out.data_ptr(),
-                n, h, w, blur_k, int(out_dtype == torch.bfloat16), stream,
-            )
-        if code != 0:
-            reason = self._error_string(code).decode()
-            raise RuntimeError(f"augment_pointwise_chain launch failed: {reason}")
-        self.launches += 1
+        self._launch(
+            images_u8.device, images_u8.data_ptr(), factors_packed.data_ptr(),
+            out.data_ptr(), n, h, w, blur_k, int(out_dtype == torch.bfloat16),
+        )
         return out
 
 
+class GrayMeansKernel(_LibraryKernel):
+    """Launches ``augment_gray_means`` on the current stream."""
+
+    def __init__(self) -> None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        super().__init__("augment_gray_means", [ptr, ptr, ptr, i, i, i])
+
+    def __call__(self, images_u8: torch.Tensor, brightness: torch.Tensor) -> torch.Tensor:
+        _check_images(images_u8, brightness, "brightness", (2 * images_u8.shape[0],))
+        n, h, w, _ = images_u8.shape
+        means = torch.empty((2 * n,), dtype=torch.float32, device=images_u8.device)
+        self._launch(
+            images_u8.device, images_u8.data_ptr(), brightness.data_ptr(),
+            means.data_ptr(), n, h, w,
+        )
+        return means
+
+
 pointwise_chain_cuda = PointwiseChainKernel()
+gray_means_cuda = GrayMeansKernel()
 
 
 def pointwise_chain(
@@ -199,6 +243,14 @@ def pointwise_chain(
     return pointwise_chain_cuda(images_u8, factors_packed, blur_k, out_dtype)
 
 
+def gray_means(images_u8: torch.Tensor, brightness: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 6) uint8 + (2N,) brightness -> (2N,) gray means: the plain
+    version for a CPU tensor, the CUDA kernel for any other."""
+    if images_u8.device.type == "cpu":
+        return gray_means_plain(images_u8, brightness)
+    return gray_means_cuda(images_u8, brightness)
+
+
 def augment_stereo_batch_fused(
     generator: torch.Generator,
     stereo_u8: torch.Tensor,
@@ -206,21 +258,24 @@ def augment_stereo_batch_fused(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Augment the (N, H, W, 6) uint8 stereo batch through the fused chain:
-    sample, pack, chain (kernel on CUDA), then noise + clamp. Returns
-    ``out_dtype`` in [0, 1]; with bf16 the noise epilogue runs in bf16.
+    sample, gray means and pack, chain (kernels on CUDA), then noise +
+    clamp. Returns ``out_dtype`` in [0, 1]; with bf16 the noise epilogue
+    runs in bf16.
 
     ``config.impl``: "auto" dispatches on the tensor's device, "kernel"
-    launches the kernel (raises on the CPU), "plain" runs the plain chain."""
+    launches the kernels (raises on the CPU), "plain" runs the plain
+    versions."""
     n = stereo_u8.shape[0]
+    stereo_u8 = stereo_u8.contiguous()
     factors = sample_factors(generator, 2 * n, config)
-    packed = _pack_factors(stereo_u8, factors, n)
-    blur_k = config.blur_kernel_size if config.blur_enabled else 0
-    chain = {
-        "auto": pointwise_chain,
-        "kernel": pointwise_chain_cuda,
-        "plain": pointwise_chain_plain,
+    means_fn, chain = {
+        "auto": (gray_means, pointwise_chain),
+        "kernel": (gray_means_cuda, pointwise_chain_cuda),
+        "plain": (gray_means_plain, pointwise_chain_plain),
     }[config.impl]
-    out = chain(stereo_u8.contiguous(), packed, blur_k, out_dtype)
+    packed = _pack_factors(stereo_u8, factors, n, means_fn)
+    blur_k = config.blur_kernel_size if config.blur_enabled else 0
+    out = chain(stereo_u8, packed, blur_k, out_dtype)
     return noise_and_clip_stereo(
         generator,
         out,

@@ -121,6 +121,39 @@ def test_pack_factors_matches_jax() -> None:
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 32, 48)])
+def test_gray_means_plain_matches_jax_pack_factors(shape) -> None:
+    """The gray-mean kernel's plain version against the gray-mean columns
+    (5: left views, 13: right views) of the JAX package's _pack_factors."""
+    n = shape[0]
+    x = _tie_rich_u8(*shape, 6, seed=9)
+    factors = _np_factors(2 * n, seed=10)
+    ref = np.asarray(AP._pack_factors(jnp.asarray(x), _jax(factors), n))
+    out = TC.gray_means_plain(
+        torch.from_numpy(x), torch.from_numpy(factors["brightness"])
+    ).numpy()
+    assert out.shape == (2 * n,) and out.dtype == np.float32
+    np.testing.assert_allclose(out, np.concatenate([ref[:, 5], ref[:, 13]]), atol=1e-6)
+
+
+def test_gray_means_dispatcher_on_cpu_is_the_plain_version() -> None:
+    x = torch.from_numpy(_tie_rich_u8(2, 9, 11, 6, seed=11))
+    brightness = torch.from_numpy(_np_factors(4, seed=12)["brightness"])
+    before = TC.gray_means_cuda.launches
+    np.testing.assert_array_equal(
+        TC.gray_means(x, brightness).numpy(), TC.gray_means_plain(x, brightness).numpy()
+    )
+    assert TC.gray_means_cuda.launches == before
+
+
+def test_gray_means_kernel_refuses_cpu_tensors() -> None:
+    x = torch.zeros((2, 8, 8, 6), dtype=torch.uint8)
+    before = TC.gray_means_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TC.gray_means_cuda(x, torch.ones(4))
+    assert TC.gray_means_cuda.launches == before
+
+
 @pytest.mark.parametrize("blur_k", [0, 5])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_pointwise_chain_plain_matches_pallas_interpret(blur_k, out_dtype) -> None:

@@ -18,7 +18,7 @@ from stereo_depth_estimation_tpu_torch.ops import augment_cuda
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_depth_estimation_tpu_torch"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "stereo_depth_estimation_tpu"}
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / f for f in ("chip_smoke.py", "augment_timing.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -46,7 +46,7 @@ def test_port_imports_with_jax_blocked() -> None:
         f"for name in {sorted(FORBIDDEN)!r}:\n"
         "    sys.modules[name] = None  # any import of it raises\n"
         "import importlib\n"
-        f"for m in {modules + ['chip_smoke']!r}:\n"
+        f"for m in {modules + ['chip_smoke', 'augment_timing']!r}:\n"
         "    importlib.import_module(m)\n"
         "print('imported', len(sys.modules))\n"
     )
