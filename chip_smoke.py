@@ -15,7 +15,12 @@ plain PyTorch version on the card, and drives the port's two paths:
   step, K2/K3 (the model's four 2x2 max pools, forward and backward) four
   times each per step, K2 four times per predict;
 - the trainer CLI on the packed cache: a synthetic FoundationStereo-layout
-  dataset, two epochs device-resident (pinned), then a resumed third.
+  dataset, two epochs device-resident (pinned), then a resumed third;
+- the serving path on that dataset and the trainer's ``last.pt`` (base 32,
+  float32): the evaluate CLI (held against ``make_eval_step`` on the CPU),
+  the predict CLI, and the live engine (640x480 captures rectified and
+  resized to 240x320, batch 1) held against itself on the CPU and
+  hot-reloaded; K2 four times per forward.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
@@ -28,8 +33,12 @@ Without CUDA, or outside the repository, it exits non-zero too.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -45,8 +54,13 @@ from PIL import Image
 from augment_timing import describe as describe_augmentation
 from augment_timing import time_augmentation, time_ms
 from stereo_depth_estimation_tpu_torch import _build
+from stereo_depth_estimation_tpu_torch.data.dataset import StereoSampleLoader
 from stereo_depth_estimation_tpu_torch.data.packed_cache import PackedCache
+from stereo_depth_estimation_tpu_torch.data.pipeline import batch_iterator, loader_fetch
 from stereo_depth_estimation_tpu_torch.data.samples import discover_samples, split_samples
+from stereo_depth_estimation_tpu_torch.eval import evaluate, predict
+from stereo_depth_estimation_tpu_torch.eval.preview import normalize_map
+from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatcher, LiveDepthEngine
 from stereo_depth_estimation_tpu_torch.models import StereoUNet
 from stereo_depth_estimation_tpu_torch.ops import pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
@@ -58,11 +72,18 @@ from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     pointwise_chain_plain,
 )
 from stereo_depth_estimation_tpu_torch.ops.codec import disparity_encode_np
-from stereo_depth_estimation_tpu_torch.ops.loss import LossStats, metrics_from_stats
+from stereo_depth_estimation_tpu_torch.ops.loss import (
+    LossStats,
+    accumulate_stats,
+    metrics_from_stats,
+)
+from stereo_depth_estimation_tpu_torch.ops.remap import Rectifier
 from stereo_depth_estimation_tpu_torch.parallel import (
+    TrainState,
     create_train_state,
     make_adamw,
     make_device_data_train_step,
+    make_eval_step,
     make_predict_fn,
     make_train_step,
     train_step,
@@ -77,6 +98,31 @@ POOL_SHAPES = [(BATCH, HW[0] >> k, HW[1] >> k, 32 << k) for k in range(4)]
 POOL_RAGGED = [(2, 6, 10, 3), (2, 6, 10, 6), (3, 14, 22, 40), (1, 2, 2, 8)]
 # Trainer phase: a synthetic dataset above the training size (resize runs).
 TRAIN_SAMPLES, TRAIN_SOURCE_HW, TRAIN_BATCH = 160, (288, 384), 32
+# Serving phase, at the JAX serving CLIs' defaults: evaluate and predict at
+# batch 30, the live viewer at batch 1 from 640x480 captures; StereoUNet base
+# 32 in float32. Evaluate scores 60 samples of the set (two batches) and the
+# val split; predict takes 40 pairs (a full batch and a tail of 10).
+SERVE_BATCH, CAPTURE_HW, EVAL_SAMPLES, PREDICT_PAIRS = 30, (480, 640), 60, 40
+LIVE_WARMUP, LIVE_FRAMES, LIVE_SPLIT_FRAMES = 3, 20, 5
+SERVE_POOL_SHAPES = {n: [(n, HW[0] >> k, HW[1] >> k, 32 << k) for k in range(4)]
+                     for n in (SERVE_BATCH, 1)}
+# Card vs CPU in float32 with TF32 off: evaluate's metrics within 1e-4
+# relative; the live engine's and predict_fn's disparity and log-variance
+# within 1e-4 absolute (values of order 1 after 23 convolutions whose sums
+# run in another order; ~1e-5 expected), the live views within one level.
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4
+# Card with cuDNN's TF32 convolutions (PyTorch's default, what a user of the
+# serving CLIs gets) vs CPU: disparity and log-variance within 1e-2 of the
+# CPU output's largest magnitude (floored at 1). TF32 rounds each product's
+# operands to 10 mantissa bits (2^-11 relative); TF32 rounding emulated in
+# the convolutions on the CPU moved a base-32 forward by ~1e-4 of that
+# scale. The JAX package's default convolution precision on its TPU rounds
+# operands to bfloat16's 7 bits, coarser still.
+TF32_TOL = 1e-2
+# Steady device windows of the serving path: predict_fn and the eval step
+# at batch 30, each call timed on its own; the CPU reference for predict_fn
+# takes the batch's first CPU_PAIRS pairs (eval-mode BN is per sample).
+SERVE_REPS, CPU_PAIRS = 12, 2
 # The train step before the pools ran on K2/K3, same path and card
 # (PERF.md section 5, H100 80GB HBM3 at 700 W).
 BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
@@ -351,48 +397,69 @@ def pool_bytes(shape, itemsize: int) -> int:
     return n * h * w * c * itemsize + out * itemsize + out
 
 
-def phase_pool_timing() -> dict[str, dict]:
-    """K2 and K3 at the main path's four shapes (bf16): kernel, plain and
-    library (F.max_pool2d with indices and its backward) times, summed."""
+def phase_pool_timing(shapes=POOL_SHAPES, dtype=torch.bfloat16,
+                      backward: bool = True) -> dict[str, dict]:
+    """K2 (and K3 with ``backward``) at ``shapes``: kernel, plain and library
+    (F.max_pool2d with indices and its backward) times, summed over the
+    shapes, with the byte bound. At each shape the kernels' outputs are held
+    equal to the plain versions' (tolerance 0, as in phase_pool_checks)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-            for name in ("K2", "K3")}
-    for shape in POOL_SHAPES:
-        x = tie_rich(gen, shape, torch.bfloat16)
+    names = ("K2", "K3") if backward else ("K2",)
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0} for name in names}
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    type_name = str(dtype).split(".")[-1]
+    for shape in shapes:
+        launches = (pool.maxpool2x2_fwd_cuda.launches, pool.maxpool2x2_bwd_cuda.launches)
+        x = tie_rich(gen, shape, dtype)
         y, idx = pool.maxpool2x2_fwd_cuda(x)
-        dy = torch.randn(y.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        ref_y, ref_idx = pool.maxpool2x2_fwd_plain(x)
+        torch.cuda.synchronize()
+        check(equal_nan(y, ref_y) and torch.equal(idx, ref_idx),
+              f"K2 differs from its plain version at {shape} {dtype} (timed shape)")
+        errs = {"K2": float((y.float() - ref_y.float()).nan_to_num(0.0).abs().max())}
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the model holds it
         lib_y, lib_idx = F.max_pool2d(x_nchw, 2, return_indices=True)
-        dy_nchw = dy.permute(0, 3, 1, 2)
-        launches = (pool.maxpool2x2_fwd_cuda.launches, pool.maxpool2x2_bwd_cuda.launches)
-        times = {
-            "K2": (time_ms(lambda: pool.maxpool2x2_fwd_cuda(x), 20),
-                   time_ms(lambda: pool.maxpool2x2_fwd_plain(x), 3),
-                   time_ms(lambda: F.max_pool2d(x_nchw, 2, return_indices=True), 20)),
-            "K3": (time_ms(lambda: pool.maxpool2x2_bwd_cuda(dy, idx), 20),
-                   time_ms(lambda: pool.maxpool2x2_bwd_plain(dy, idx), 3),
-                   time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                       dy_nchw, x_nchw, [2, 2], [2, 2], [0, 0], [1, 1], False, lib_idx), 20)),
-        }
+        times = {"K2": (time_ms(lambda: pool.maxpool2x2_fwd_cuda(x), 20),
+                        time_ms(lambda: pool.maxpool2x2_fwd_plain(x), 3),
+                        time_ms(lambda: F.max_pool2d(x_nchw, 2, return_indices=True), 20))}
+        if backward:
+            dy = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+            dx, ref_dx = pool.maxpool2x2_bwd_cuda(dy, idx), pool.maxpool2x2_bwd_plain(dy, idx)
+            torch.cuda.synchronize()
+            check(equal_nan(dx, ref_dx),
+                  f"K3 differs from its plain version at {shape} {dtype} (timed shape)")
+            errs["K3"] = float((dx.float() - ref_dx.float()).nan_to_num(0.0).abs().max())
+            del dx, ref_dx
+            dy_nchw = dy.permute(0, 3, 1, 2)
+            times["K3"] = (
+                time_ms(lambda: pool.maxpool2x2_bwd_cuda(dy, idx), 20),
+                time_ms(lambda: pool.maxpool2x2_bwd_plain(dy, idx), 3),
+                time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    dy_nchw, x_nchw, [2, 2], [2, 2], [0, 0], [1, 1], False, lib_idx), 20))
+            del dy, dy_nchw
         # Timing launches are not the main path's: restore the counts.
         pool.maxpool2x2_fwd_cuda.launches, pool.maxpool2x2_bwd_cuda.launches = launches
-        bound_ms = pool_bytes(shape, 2) / HBM_BYTES_PER_S * 1e3
+        nbytes = pool_bytes(shape, itemsize)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         for name, (ms, plain_ms, lib_ms) in times.items():
             sums[name]["ms"] += ms
             sums[name]["plain_ms"] += plain_ms
             sums[name]["library_ms"] += lib_ms
             sums[name]["bound_ms"] += bound_ms
-            print(f"pool timing: {name} {'x'.join(map(str, shape))} bf16: kernel "
+            sums[name]["max_abs_err"] = max(sums[name]["max_abs_err"], errs[name])
+            print(f"pool timing: {name} {'x'.join(map(str, shape))} {type_name}: kernel "
                   f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
                   f"{lib_ms * 1e3:.1f} us, byte bound {bound_ms * 1e3:.1f} us "
-                  f"({pool_bytes(shape, 2) / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of bound")
-        del x, y, idx, dy, x_nchw, lib_y, lib_idx, dy_nchw
+                  f"({nbytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of bound; equal to "
+                  f"the plain version (max_abs_err {errs[name]:g}, tol 0) ok")
+        del x, y, idx, ref_y, ref_idx, x_nchw, lib_y, lib_idx
     for name, s in sums.items():
-        print(f"pool timing: {name} over the four levels: kernel {s['ms'] * 1e3:.1f} us, "
-              f"plain {s['plain_ms'] * 1e3:.1f} us, library {s['library_ms'] * 1e3:.1f} us, "
-              f"byte bound {s['bound_ms'] * 1e3:.1f} us, {100 * s['bound_ms'] / s['ms']:.1f}% "
-              "of bound")
+        print(f"pool timing: {name} over the {len(shapes)} levels at batch {shapes[0][0]} "
+              f"{type_name}: kernel {s['ms'] * 1e3:.1f} us, plain {s['plain_ms'] * 1e3:.1f} us, "
+              f"library {s['library_ms'] * 1e3:.1f} us, byte bound {s['bound_ms'] * 1e3:.1f} "
+              f"us, {100 * s['bound_ms'] / s['ms']:.1f}% of bound")
     return sums
 
 
@@ -419,98 +486,483 @@ def write_dataset(root: Path, n: int, hw: tuple[int, int], seed: int) -> None:
         list(workers.map(write, range(n)))
 
 
-def run_trainer(argv: list[str]) -> tuple[dict, dict[str, int], float]:
-    """``trainer.main(argv)`` with the launch counts set to 0 just before
-    and read just after; returns the summary, the counts and the seconds."""
+def counted(entry_point, argv: list[str]):
+    """``entry_point(argv)`` with the launch counts set to 0 just before and
+    read just after; returns its result, the counts and the seconds."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    summary = trainer.main(argv)
+    result = entry_point(argv)
     torch.cuda.synchronize()
-    return summary, counts(), time.perf_counter() - t0
+    return result, counts(), time.perf_counter() - t0
 
 
-def phase_trainer() -> dict[str, int]:
+def phase_trainer(tmp: Path) -> Path:
     """The trainer CLI on the packed cache: two epochs device-resident
     (the budget must pin the set), then ``--resume`` from ``last.pt`` for a
     third. Checks the metrics, the kernels' launches, the carried global
     step, the checkpoints, and that ``last.pt`` in a fresh model predicts
-    what the trained model predicts. Returns the first run's counts."""
+    what the trained model predicts. The dataset goes to ``tmp / "data"``.
+    Returns the resumed run's ``last.pt``."""
     h, w = HW
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
-        tmp = Path(tmp)
+    t0 = time.perf_counter()
+    write_dataset(tmp / "data", TRAIN_SAMPLES, TRAIN_SOURCE_HW, seed=5)
+    print(f"trainer: wrote {TRAIN_SAMPLES} samples at {TRAIN_SOURCE_HW[0]}x"
+          f"{TRAIN_SOURCE_HW[1]} in {time.perf_counter() - t0:.1f} s")
+    common = [
+        "--dataset-root", str(tmp / "data"), "--packed-cache-root", str(tmp / "packed"),
+        "--height", str(h), "--width", str(w), "--base-channels", "32",
+        "--compute-dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH),
+        "--device-resident", "auto", "--preview-samples", "4", "--log-every-batches", "2",
+        "--mlflow-tracking-uri", str(tmp / "mlruns"), "--output-dir", str(tmp / "outputs"),
+    ]
+    train_samples, val_samples = split_samples(discover_samples(tmp / "data"), 0.1, 42)
+    steps_per_epoch = len(train_samples) // TRAIN_BATCH  # pinned: whole batches
+    val_batches = -(-len(val_samples) // TRAIN_BATCH)
+
+    first, first_counts, first_s = counted(trainer.main, common + ["--epochs", "2"])
+    last = Path(first["checkpoints_dir"]) / "last.pt"
+    resumed, resumed_counts, resumed_s = counted(
+        trainer.main, common + ["--epochs", "3", "--resume", str(last)])
+
+    for summary, run_counts, epochs in ((first, first_counts, 2), (resumed, resumed_counts, 1)):
+        check(summary["device_resident"] == "pinned",
+              f"trainer staged the set as {summary['device_resident']}, not pinned")
+        steps = epochs * steps_per_epoch
+        # Per epoch: the gray means, K1 and 4 K3 per train step; 4 K2 per
+        # train step, per validation batch and per preview predict.
+        expected = {"GM": steps, "K1": steps,
+                    "K2": 4 * (steps + epochs * (val_batches + 1)), "K3": 4 * steps}
+        got = {k: run_counts[k] for k in expected}
+        check(got == expected, f"trainer launches {got}, expected {expected}")
+        for epoch in summary["epochs"]:
+            values = [epoch[k] for k in epoch if k.startswith(("train_", "val_"))]
+            check(len(values) == 10 and all(math.isfinite(v) for v in values),
+                  f"trainer epoch {epoch['epoch']} metrics {epoch}")
+            print(f"trainer: epoch {epoch['epoch']}: {epoch['epoch_seconds']:.2f} s, "
+                  f"{steps_per_epoch / epoch['epoch_seconds']:.2f} steps/s "
+                  f"({steps_per_epoch} steps of {TRAIN_BATCH}, eval and previews "
+                  f"included), train_mae {epoch['train_mae']:.4f}, val_mae "
+                  f"{epoch['val_mae']:.4f}, val_nll {epoch['val_nll']:.4f}, global step "
+                  f"{epoch['global_step']}")
+    check(first["global_step"] == 2 * steps_per_epoch, f"global step {first['global_step']}")
+    check(resumed["global_step"] == 3 * steps_per_epoch
+          and [e["epoch"] for e in resumed["epochs"]] == [3],
+          f"resume: global step {resumed['global_step']}, epochs {resumed['epochs']}")
+    # best.pt is banked on a new best val MAE, which the resumed epoch
+    # need not reach (the best so far is carried across the resume).
+    for summary, names in ((first, ("best.pt", "last.pt")), (resumed, ("last.pt",))):
+        for name in names:
+            check((Path(summary["checkpoints_dir"]) / name).is_file(), f"no {name}")
+    check(resumed["best_epoch"] in (first["best_epoch"], 3),
+          f"best epoch {resumed['best_epoch']} after the resume")
+
+    trained = resumed["state"].model
+    device = next(trained.parameters()).device
+    fresh = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device=device)
+    loaded = checkpoint.load_model_variables(
+        Path(resumed["checkpoints_dir"]) / "last.pt", fresh)
+    check(loaded["epoch"] == 3 and not loaded["missing_keys"]
+          and not loaded["unexpected_keys"], f"last.pt load: {loaded}")
+    val = PackedCache(tmp / "packed" / "val").load_all()["input"]
+    inputs = torch.from_numpy(np.array(val)).to(device)  # the validation set
+    want = make_predict_fn(trained)(inputs)
+    got = make_predict_fn(fresh)(inputs)
+    for a, b in zip(got, want):
+        check(torch.equal(a, b), "last.pt in a fresh model predicts otherwise than the "
+              f"trained model: max diff {float((a - b).abs().max())}")
+    print(f"trainer: 2 epochs in {first_s:.1f} s and a resumed third in {resumed_s:.1f} s "
+          f"(packed cache built in the first), device-resident pinned; launches "
+          f"{first_counts} then {resumed_counts}; global step {first['global_step']} -> "
+          f"{resumed['global_step']} across the resume; last.pt in a fresh model predicts "
+          "the trained model's disparity and log-variance exactly ok")
+    return Path(resumed["checkpoints_dir"]) / "last.pt"
+
+
+def rotation(rx: float, ry: float, rz: float) -> np.ndarray:
+    """The rotation matrix of the axis-angle vector (rx, ry, rz) (Rodrigues)."""
+    v = np.array([rx, ry, rz], dtype=np.float64)
+    theta = float(np.linalg.norm(v))
+    k = v / theta
+    cross = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(theta) * cross + (1.0 - np.cos(theta)) * cross @ cross
+
+
+def synthetic_calibration(w: int, h: int, baseline_m: float = 0.07) -> dict[str, np.ndarray]:
+    """A calibration bundle of a plausible rig, made with numpy: intrinsics
+    that differ a little between the cameras, mild distortion, rectifying
+    rotations of a few mrad, and rectified projections with the baseline in
+    P2 (the keys the calibrate CLI writes and the live viewer reads)."""
+    f = 0.8 * w
+    p1 = np.array([[f, 0.0, w / 2, 0.0], [0.0, f, h / 2, 0.0], [0.0, 0.0, 1.0, 0.0]])
+    p2 = p1.copy()
+    p2[0, 3] = -f * baseline_m
+    return {
+        "image_size": np.array([w, h]),
+        "mtx_l": np.array([[f, 0.0, w / 2 - 2], [0.0, f, h / 2 + 1], [0.0, 0.0, 1.0]]),
+        "dist_l": np.array([-0.08, 0.02, 1e-3, -5e-4, 0.0]),
+        "mtx_r": np.array([[1.01 * f, 0.0, w / 2 + 1], [0.0, 1.01 * f, h / 2 - 1],
+                           [0.0, 0.0, 1.0]]),
+        "dist_r": np.array([-0.07, 0.02, -8e-4, 6e-4, 0.0]),
+        "R1": rotation(0.001, 0.005, 0.001), "R2": rotation(0.001, -0.005, 0.001),
+        "P1": p1, "P2": p2, "T": np.array([[-baseline_m], [0.0], [0.0]]),
+    }
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's TF32 convolutions on, PyTorch's default, as a user of the
+    serving CLIs runs them; the flag is restored afterwards."""
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+
+
+def rep_ms(fn, reps: int) -> list[float]:
+    """Device milliseconds of each of ``reps`` back-to-back calls of ``fn``
+    after one warm-up call (a CUDA event after each call)."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for event in events[1:]:
+        fn()
+        event.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def spread(times: list[float]) -> str:
+    """Median (min-max) of ``times`` in ms."""
+    return f"{statistics.median(times):.2f} ms ({min(times):.2f}-{max(times):.2f})"
+
+
+def max_err(got, want) -> tuple[float, float]:
+    """The largest absolute difference of two (disparity, logvar) pairs, and
+    that difference over the largest magnitude of ``want`` (floored at 1)."""
+    errs = [float((g.float().cpu() - w.float().cpu()).abs().max()) for g, w in zip(got, want)]
+    scales = [max(1.0, float(w.abs().max())) for w in want]
+    return max(errs), max(e / sc for e, sc in zip(errs, scales))
+
+
+def serving_counts(k2: int) -> dict[str, int]:
+    """The launch counts of a serving run: ``k2`` forward pools, nothing else."""
+    return {"GM": 0, "K1": 0, "K2": k2, "K3": 0, "dy_copies": 0}
+
+
+def check_evaluate(data: Path, ckpt: Path, *argv: str) -> tuple[dict, float, int]:
+    """The evaluate CLI as a user runs it (``--device auto``, batch 30);
+    checks its launches and metrics. Returns its JSON line, seconds and K2
+    launches."""
+    result, got, seconds = counted(evaluate.main, [
+        "--dataset-root", str(data), "--checkpoint", str(ckpt), *argv,
+        "--batch-size", str(SERVE_BATCH), "--height", str(HW[0]), "--width", str(HW[1])])
+    split = " ".join(argv)
+    batches = -(-result["samples"] // SERVE_BATCH)
+    check(got == serving_counts(4 * batches),
+          f"evaluate {split}: launches {got} in {batches} batches, expected K2 "
+          f"{4 * batches}")
+    check(result["valid_pixels"] > 0 and all(
+        math.isfinite(result[k]) for k in ("loss", "nll", "mae", "rmse", "sigma")),
+        f"evaluate {split}: {result}")
+    return result, seconds, got["K2"]
+
+
+def check_predict(data: Path, ckpt: Path, out: Path, calib: Path) -> tuple[dict, float, int]:
+    """The predict CLI on the dataset's first ``PREDICT_PAIRS`` pairs with
+    ``--save-png`` and a calibration; checks its launches and every npz.
+    Returns its JSON line, seconds and K2 launches."""
+    result, got, seconds = counted(predict.main, [
+        "--dataset-root", str(data), "--split", "all", "--max-samples", str(PREDICT_PAIRS),
+        "--checkpoint", str(ckpt), "--predictions-dir", str(out), "--save-png",
+        "--calibration", str(calib), "--batch-size", str(SERVE_BATCH),
+        "--height", str(HW[0]), "--width", str(HW[1])])
+    batches = -(-PREDICT_PAIRS // SERVE_BATCH)
+    check(got == serving_counts(4 * batches),
+          f"predict: launches {got} in {batches} batches, expected K2 {4 * batches}")
+    files = sorted(out.glob("*.npz"))
+    check(result["pairs"] == len(files) == len(list(out.glob("*_disparity.png")))
+          == PREDICT_PAIRS and result["depth"], f"predict wrote {result}")
+    for path in files:
+        with np.load(path) as npz:
+            check(sorted(npz.files) == ["confidence", "depth_m", "disparity", "logvar"],
+                  f"{path.name} holds {npz.files}")
+            arrays = {k: npz[k] for k in npz.files}
+        check(all(a.shape == HW and a.dtype == np.float16 for a in arrays.values()),
+              f"{path.name}: shapes or dtypes")
+        check(all(np.isfinite(arrays[k]).all() for k in ("disparity", "logvar", "confidence")),
+              f"{path.name}: non-finite values")
+        # Depth overflows float16 (or is NaN) only where disparity is ~0.
+        check(bool((np.isfinite(arrays["depth_m"]) | (arrays["disparity"] < 1e-3)).all()),
+              f"{path.name}: non-finite depth where disparity is not ~0")
+    return result, seconds, got["K2"]
+
+
+def phase_serving(tmp: Path, ckpt: Path) -> int:
+    """The serving path at full width on the trainer phase's dataset and
+    ``last.pt`` (StereoUNet base 32 in float32, as the JAX serving CLIs build
+    it): the evaluate CLI (the whole set, and the val split held against
+    ``make_eval_step`` on the CPU), the predict CLI, and the live engine
+    (640x480 captures rectified and resized to 240x320, batch 1) held
+    against the same engine on the CPU, then hot-reloaded. Returns the K2
+    launches of the runs it drove."""
+    data = tmp / "data"
+    k2 = 0
+    whole, whole_s, n = check_evaluate(data, ckpt, "--split", "all",
+                                       "--max-samples", str(EVAL_SAMPLES))
+    k2 += n
+    val, val_s, n = check_evaluate(data, ckpt, "--split", "val")
+    k2 += n
+
+    # make_eval_step on the CPU, same weights, same val samples.
+    t0 = time.perf_counter()
+    _, val_samples = split_samples(discover_samples(data), 0.1, 42)
+    cpu_model = StereoUNet(base_channels=32, device="cpu")
+    checkpoint.load_model_variables(ckpt, cpu_model)
+    state, eval_step = TrainState(cpu_model, None, None), make_eval_step()
+    loader = StereoSampleLoader(val_samples, image_size=HW)
+    total = None
+    for batch in batch_iterator(loader_fetch(loader, 4), len(loader), SERVE_BATCH):
+        total = accumulate_stats(
+            total, eval_step(state, {k: torch.from_numpy(v) for k, v in batch.items()}))
+    ref = metrics_from_stats(total)
+    cpu_s = time.perf_counter() - t0
+    worst = max(abs(val[k] - ref[k]) / abs(ref[k]) for k in ("mae", "rmse", "nll", "sigma"))
+    check(int(total.valid_count) == val["valid_pixels"] and worst <= SERVE_RTOL,
+          f"evaluate on the card {val} vs make_eval_step on the CPU {ref}: {worst:.3g}")
+    # The host's share: the evaluate CLI's sample loader alone.
+    loader_ms = {}
+    for workers in (0, 4):
+        fetch = loader_fetch(loader, workers)
         t0 = time.perf_counter()
-        write_dataset(tmp / "data", TRAIN_SAMPLES, TRAIN_SOURCE_HW, seed=5)
-        print(f"trainer: wrote {TRAIN_SAMPLES} samples at {TRAIN_SOURCE_HW[0]}x"
-              f"{TRAIN_SOURCE_HW[1]} in {time.perf_counter() - t0:.1f} s")
-        common = [
-            "--dataset-root", str(tmp / "data"), "--packed-cache-root", str(tmp / "packed"),
-            "--height", str(h), "--width", str(w), "--base-channels", "32",
-            "--compute-dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH),
-            "--device-resident", "auto", "--preview-samples", "4", "--log-every-batches", "2",
-            "--mlflow-tracking-uri", str(tmp / "mlruns"), "--output-dir", str(tmp / "outputs"),
-        ]
-        train_samples, val_samples = split_samples(discover_samples(tmp / "data"), 0.1, 42)
-        steps_per_epoch = len(train_samples) // TRAIN_BATCH  # pinned: whole batches
-        val_batches = -(-len(val_samples) // TRAIN_BATCH)
+        fetch(np.arange(len(loader)))
+        loader_ms[workers] = (time.perf_counter() - t0) * 1e3 / len(loader)
+    print(f"evaluate: base 32 f32, batch {SERVE_BATCH}, {HW[0]}x{HW[1]}, TF32 off: per-run "
+          f"CLI latency {whole_s:.2f} s for {whole['samples']} samples (--split all "
+          f"--max-samples {EVAL_SAMPLES}; model build, checkpoint load, decode, resize and "
+          f"cuDNN's first algorithm choices included: {whole['samples'] / whole_s:.1f} "
+          f"samples/s of one run, not a steady rate), mae {whole['mae']:.4f}; --split val "
+          f"{val['samples']} samples in {val_s:.2f} s, metrics within {worst:.2g} (rel) of "
+          f"make_eval_step on the CPU (tol {SERVE_RTOL:g}; {cpu_s:.2f} s on the CPU), valid "
+          f"pixels {val['valid_pixels']} equal; K2 launches 4 a batch ok; its sample loader "
+          f"alone (decode and resize on the host) {loader_ms[4]:.1f} ms a sample with the "
+          f"CLI's 4 workers, {loader_ms[0]:.1f} ms with none")
 
-        first, first_counts, first_s = run_trainer(common + ["--epochs", "2"])
-        last = Path(first["checkpoints_dir"]) / "last.pt"
-        resumed, resumed_counts, resumed_s = run_trainer(
-            common + ["--epochs", "3", "--resume", str(last)])
+    calib_arrays = synthetic_calibration(CAPTURE_HW[1], CAPTURE_HW[0])
+    calib = tmp / "stereo_calib.npz"
+    np.savez(calib, **calib_arrays)
+    result, predict_s, n = check_predict(data, ckpt, tmp / "predictions", calib)
+    k2 += n
+    model = StereoUNet(base_channels=32, device="cuda")
+    checkpoint.load_model_variables(ckpt, model)
+    predict_fn = make_predict_fn(model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    batch = torch.randint(0, 256, (SERVE_BATCH, *HW, 6), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    target = torch.rand((SERVE_BATCH, *HW), device="cuda", generator=gen) * 63.5 + 0.5
+    eval_state = TrainState(model, None, None)
+    steady = {"predict_fn": lambda: predict_fn(batch),
+              "eval step": lambda: eval_step(eval_state, {"input": batch, "target": target})}
+    # Steady windows, TF32 off and then as users run them; the outputs of
+    # both against the CPU model on the batch's first pairs.
+    off_ms = {name: rep_ms(fn, SERVE_REPS) for name, fn in steady.items()}
+    off_out = predict_fn(batch)
+    with cudnn_tf32():
+        on_ms = {name: rep_ms(fn, SERVE_REPS) for name, fn in steady.items()}
+        on_out = predict_fn(batch)
+    cpu_ref = make_predict_fn(cpu_model)(batch[:CPU_PAIRS].cpu())
+    off_err, _ = max_err([t[:CPU_PAIRS] for t in off_out], cpu_ref)
+    on_err, on_rel = max_err([t[:CPU_PAIRS] for t in on_out], cpu_ref)
+    check(off_err <= SERVE_ATOL, f"predict_fn card (TF32 off) vs CPU: {off_err:.3g} > "
+          f"{SERVE_ATOL:g}")
+    check(on_rel <= TF32_TOL, f"predict_fn card (cuDNN TF32) vs CPU: {on_err:.3g}, "
+          f"{on_rel:.3g} of the output's scale > {TF32_TOL:g}")
+    for name in steady:
+        print(f"{name}: steady device window at batch {SERVE_BATCH} f32, {SERVE_REPS} calls "
+              f"after a warm-up: TF32 off {spread(off_ms[name])} = "
+              f"{SERVE_BATCH * 1e3 / statistics.median(off_ms[name]):.1f} samples/s; with "
+              f"cudnn.allow_tf32=True (PyTorch's default) {spread(on_ms[name])} = "
+              f"{SERVE_BATCH * 1e3 / statistics.median(on_ms[name]):.1f} samples/s")
+    print(f"predict_fn: card vs CPU on {CPU_PAIRS} pairs of the batch: TF32 off within "
+          f"{off_err:.3g} (tol {SERVE_ATOL:g}); cuDNN TF32 within {on_err:.3g} = "
+          f"{on_rel:.3g} of the output's scale (tol {TF32_TOL:g}) ok")
+    # The host's share per pair: decode and resize, and the PNG preview.
+    pairs = predict._pairs(predict.build_parser().parse_args([
+        "--dataset-root", str(data), "--split", "all", "--max-samples", "10",
+        "--predictions-dir", str(tmp)]))
+    t0 = time.perf_counter()
+    for _, left, right in pairs:
+        predict._load_pair_u8(left, right, HW)
+    load_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    disp = predict_fn(batch[:1])[0][0].cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in pairs:
+        Image.fromarray(normalize_map(disp)).save(tmp / "preview.png")
+    png_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    print(f"predict: per-run CLI latency {predict_s:.2f} s for {result['pairs']} pairs "
+          f"(batches of {SERVE_BATCH} and a tail of {PREDICT_PAIRS % SERVE_BATCH}; model build, "
+          f"checkpoint load, PNG decode, resize, npz and PNG writes included: "
+          f"{result['pairs'] / predict_s:.1f} pairs/s of one run, the CLI's own "
+          f"{result['pairs_per_sec']} pairs/s without the build and load), TF32 off; on the host "
+          f"{load_ms:.1f} ms a pair to decode and resize, {png_ms:.1f} ms for its PNG "
+          "preview; npz files with disparity/logvar/confidence/depth_m finite ok")
+    del model, predict_fn, batch, target, eval_state, off_out, on_out
 
-        for summary, run_counts, epochs in ((first, first_counts, 2), (resumed, resumed_counts, 1)):
-            check(summary["device_resident"] == "pinned",
-                  f"trainer staged the set as {summary['device_resident']}, not pinned")
-            steps = epochs * steps_per_epoch
-            # Per epoch: the gray means, K1 and 4 K3 per train step; 4 K2 per
-            # train step, per validation batch and per preview predict.
-            expected = {"GM": steps, "K1": steps,
-                        "K2": 4 * (steps + epochs * (val_batches + 1)), "K3": 4 * steps}
-            got = {k: run_counts[k] for k in expected}
-            check(got == expected, f"trainer launches {got}, expected {expected}")
-            for epoch in summary["epochs"]:
-                values = [epoch[k] for k in epoch if k.startswith(("train_", "val_"))]
-                check(len(values) == 10 and all(math.isfinite(v) for v in values),
-                      f"trainer epoch {epoch['epoch']} metrics {epoch}")
-                print(f"trainer: epoch {epoch['epoch']}: {epoch['epoch_seconds']:.2f} s, "
-                      f"{steps_per_epoch / epoch['epoch_seconds']:.2f} steps/s "
-                      f"({steps_per_epoch} steps of {TRAIN_BATCH}, eval and previews "
-                      f"included), train_mae {epoch['train_mae']:.4f}, val_mae "
-                      f"{epoch['val_mae']:.4f}, val_nll {epoch['val_nll']:.4f}, global step "
-                      f"{epoch['global_step']}")
-        check(first["global_step"] == 2 * steps_per_epoch, f"global step {first['global_step']}")
-        check(resumed["global_step"] == 3 * steps_per_epoch
-              and [e["epoch"] for e in resumed["epochs"]] == [3],
-              f"resume: global step {resumed['global_step']}, epochs {resumed['epochs']}")
-        # best.pt is banked on a new best val MAE, which the resumed epoch
-        # need not reach (the best so far is carried across the resume).
-        for summary, names in ((first, ("best.pt", "last.pt")), (resumed, ("last.pt",))):
-            for name in names:
-                check((Path(summary["checkpoints_dir"]) / name).is_file(), f"no {name}")
-        check(resumed["best_epoch"] in (first["best_epoch"], 3),
-              f"best epoch {resumed['best_epoch']} after the resume")
+    k2 += check_live(tmp, ckpt, calib_arrays)
+    return k2
 
-        trained = resumed["state"].model
-        device = next(trained.parameters()).device
-        fresh = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device=device)
-        loaded = checkpoint.load_model_variables(
-            Path(resumed["checkpoints_dir"]) / "last.pt", fresh)
-        check(loaded["epoch"] == 3 and not loaded["missing_keys"]
-              and not loaded["unexpected_keys"], f"last.pt load: {loaded}")
-        val = PackedCache(tmp / "packed" / "val").load_all()["input"]
-        inputs = torch.from_numpy(np.array(val)).to(device)  # the validation set
-        want = make_predict_fn(trained)(inputs)
-        got = make_predict_fn(fresh)(inputs)
-        for a, b in zip(got, want):
-            check(torch.equal(a, b), "last.pt in a fresh model predicts otherwise than the "
-                  f"trained model: max diff {float((a - b).abs().max())}")
-        print(f"trainer: 2 epochs in {first_s:.1f} s and a resumed third in {resumed_s:.1f} s "
-              f"(packed cache built in the first), device-resident pinned; launches "
-              f"{first_counts} then {resumed_counts}; global step {first['global_step']} -> "
-              f"{resumed['global_step']} across the resume; last.pt in a fresh model predicts "
-              "the trained model's disparity and log-variance exactly ok")
-    return first_counts
+
+def stage_split(engine: LiveDepthEngine, frames) -> dict[str, float]:
+    """Median milliseconds of each stage of ``engine.process`` over
+    ``frames``: CUDA events between the stages, so the host's enqueue time
+    falls inside the span it delays."""
+    stages = ("H2D", "remap + resize", "forward", "D2H")
+    spans: dict[str, list[float]] = {name: [] for name in stages}
+    for left, right in frames:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        events[0].record()
+        up = engine.upload(left, right)
+        events[1].record()
+        views = engine.preprocess(*up)
+        events[2].record()
+        out = engine.forward(*views)
+        events[3].record()
+        engine.download(*out)
+        events[4].record()
+        torch.cuda.synchronize()
+        for k, name in enumerate(stages):
+            spans[name].append(events[k].elapsed_time(events[k + 1]))
+    return {name: statistics.median(v) for name, v in spans.items()}
+
+
+def check_live(tmp: Path, ckpt: Path, calib: dict[str, np.ndarray]) -> int:
+    """The live engine at the viewer's defaults on random BGR frames:
+    timing, launches, split by stage, device-busy share, peak memory, card
+    vs CPU, a TF32 run and a hot reload. Returns its K2 launches."""
+    live_pt = tmp / "live.pt"
+    shutil.copyfile(ckpt, live_pt)
+    model_wh = (HW[1], HW[0])
+    engine = LiveDepthEngine(model_wh, Rectifier.from_calibration(calib, "cuda"), "cuda", 32)
+    epoch, uncertainty = engine.load_checkpoint(live_pt)
+    check(uncertainty, "last.pt has no logvar head")
+    rng = np.random.default_rng(12)
+    frames = [tuple(rng.integers(0, 256, (*CAPTURE_HW, 3), dtype=np.uint8) for _ in range(2))
+              for _ in range(LIVE_WARMUP + LIVE_FRAMES)]
+    timed = frames[LIVE_WARMUP:]
+
+    def run_frames() -> tuple[list[float], list]:
+        times, outs = [], []
+        for left, right in timed:
+            t0 = time.perf_counter()
+            outs.append(engine.process(left, right))
+            times.append(time.perf_counter() - t0)
+        return times, outs
+
+    for left, right in frames[:LIVE_WARMUP]:
+        engine.process(left, right)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = run_frames()
+    live_counts = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(live_counts == serving_counts(4 * LIVE_FRAMES),
+          f"live: launches {live_counts} in {LIVE_FRAMES} frames, expected K2 {4 * LIVE_FRAMES}")
+    for disp, logvar, left_view, right_view in outs:
+        check(disp.shape == logvar.shape == HW and left_view.shape == right_view.shape
+              == (*HW, 3) and left_view.dtype == np.uint8, "live: output shapes")
+        check(bool(np.isfinite(disp).all() and np.isfinite(logvar).all()), "live: not finite")
+        check(float(disp.min()) >= 0.0, "live: negative disparity")
+        check(-6.0 <= float(logvar.min()) and float(logvar.max()) <= 3.0,
+              "live: logvar out of [-6, 3]")
+
+    split = stage_split(engine, timed[:LIVE_SPLIT_FRAMES])
+    flips = []
+    for left, _ in timed[:LIVE_SPLIT_FRAMES]:
+        t0 = time.perf_counter()
+        np.ascontiguousarray(left[..., ::-1])
+        flips.append(2 * (time.perf_counter() - t0) * 1e3)  # two frames a pair
+    rows, window_us = profile_kernels(lambda: engine.process(*timed[0]), LIVE_SPLIT_FRAMES)
+    kernel_ms = sum(r[0] for r in rows) / 1e3 / LIVE_SPLIT_FRAMES
+    launches_per_frame = sum(r[1] for r in rows) / LIVE_SPLIT_FRAMES
+    ms_frame = statistics.median(times) * 1e3
+    print(f"live: {CAPTURE_HW[1]}x{CAPTURE_HW[0]} captures rectified and resized to "
+          f"{HW[1]}x{HW[0]}, base 32 f32, batch 1, TF32 off (cuda.matmul and cudnn): median "
+          f"{ms_frame:.2f} ms/frame over {LIVE_FRAMES} frames after {LIVE_WARMUP} warm-up "
+          f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+          f"{1e3 / ms_frame:.1f} frames/s; K2 launches {live_counts['K2']} (4 a frame); peak "
+          f"memory {peak_gib:.3f} GiB")
+    print("live: split of a frame (CUDA events, median of "
+          f"{LIVE_SPLIT_FRAMES} frames): " + ", ".join(
+              f"{name} {ms:.3f} ms" for name, ms in split.items())
+          + f" (the H2D span holds the host's BGR->RGB flip, {statistics.median(flips):.3f} ms "
+          f"a pair); device kernels {kernel_ms:.3f} ms a frame ({launches_per_frame:.0f} "
+          f"kernels) = device busy {100 * kernel_ms / ms_frame:.1f}% of the median frame "
+          f"({100 * kernel_ms * LIVE_SPLIT_FRAMES * 1e3 / window_us:.1f}% of the "
+          f"{window_us / 1e3 / LIVE_SPLIT_FRAMES:.2f} ms profiled frame, torch.profiler on); "
+          "largest: " + ", ".join(
+              f"{key[:40]} {dev / 1e3 / LIVE_SPLIT_FRAMES:.3f} ms" for dev, _, key in rows[:3]))
+
+    # The same engine on the CPU, same frame and weights.
+    t0 = time.perf_counter()
+    cpu_engine = LiveDepthEngine(model_wh, Rectifier.from_calibration(calib, "cpu"), "cpu", 32)
+    cpu_engine.load_checkpoint(live_pt)
+    cpu_out = cpu_engine.process(*timed[0])
+    errs = [float(np.abs(a - b).max()) for a, b in zip(outs[0][:2], cpu_out[:2])]
+    view_err = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                   for a, b in zip(outs[0][2:], cpu_out[2:]))
+    check(max(errs) <= SERVE_ATOL and view_err <= 1,
+          f"live engine card vs CPU: disparity {errs[0]:.3g}, logvar {errs[1]:.3g} (tol "
+          f"{SERVE_ATOL:g}), views {view_err} levels (tol 1)")
+    print(f"live: card vs CPU on one frame: disparity within {errs[0]:.3g}, logvar within "
+          f"{errs[1]:.3g} (tol {SERVE_ATOL:g}), rectified views within {view_err} level "
+          f"(tol 1) ok ({time.perf_counter() - t0:.2f} s with the CPU engine's build)")
+
+    # What a user of the CLI gets: cuDNN's TF32 convolutions, PyTorch's
+    # default; its first timed frame held against the CPU's.
+    with cudnn_tf32():
+        for left, right in frames[:LIVE_WARMUP]:
+            engine.process(left, right)
+        tf32_times, tf32_outs = run_frames()
+        tf32_split = stage_split(engine, timed[:LIVE_SPLIT_FRAMES])
+    tf32_err, tf32_rel = max_err([torch.from_numpy(a) for a in tf32_outs[0][:2]],
+                                 [torch.from_numpy(a) for a in cpu_out[:2]])
+    tf32_view_err = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                        for a, b in zip(tf32_outs[0][2:], cpu_out[2:]))
+    check(tf32_rel <= TF32_TOL and tf32_view_err <= 1,
+          f"live engine card (cuDNN TF32) vs CPU: {tf32_err:.3g}, {tf32_rel:.3g} of the "
+          f"output's scale (tol {TF32_TOL:g}), views {tf32_view_err} levels (tol 1)")
+    print(f"live: with cudnn.allow_tf32=True (PyTorch's default for convolutions): median "
+          f"{statistics.median(tf32_times) * 1e3:.2f} ms/frame over {LIVE_FRAMES} frames; "
+          "split " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in tf32_split.items())
+          + f"; card vs CPU on one frame: disparity and logvar within {tf32_err:.3g} = "
+          f"{tf32_rel:.3g} of the output's scale (tol {TF32_TOL:g}; {max(errs):.3g} with TF32 "
+          f"off), views within {tf32_view_err} level ok")
+
+    # Hot reload: another checkpoint replaces live.pt atomically.
+    t0 = time.perf_counter()
+    watcher = CheckpointWatcher(engine, live_pt, poll_sec=0.0)
+    payload = torch.load(live_pt, map_location="cpu", weights_only=False)
+    payload["epoch"] = 99
+    payload["model_state_dict"]["disparity_head.bias"] += 0.5
+    staged = live_pt.with_name("live.pt.tmp")
+    torch.save(payload, staged)
+    os.replace(staged, live_pt)
+    bump = time.time_ns() + 10**9
+    os.utime(live_pt, ns=(bump, bump))
+    watcher.maybe_reload()
+    reloaded = engine.process(*timed[0])
+    moved = float(np.abs(reloaded[0] - outs[0][0]).max())
+    check(engine.loaded_epoch == 99 and moved > 1e-3,
+          f"hot reload: epoch {engine.loaded_epoch}, disparity moved {moved}")
+    print(f"live: hot reload through CheckpointWatcher: epoch {epoch} -> "
+          f"{engine.loaded_epoch}, disparity moved by up to {moved:.3f} ok "
+          f"({time.perf_counter() - t0:.2f} s with the checkpoint's rewrite)")
+    return live_counts["K2"]
 
 
 def phase_reference_step() -> None:
@@ -636,17 +1088,18 @@ KERNEL_GROUPS = (  # first match names a device kernel's group
 )
 
 
-def phase_profile(runner, state) -> None:
-    """Device time by kernel over 2 steps (torch.profiler), grouped, and the
-    device's busy share of the profiled window."""
+def profile_kernels(run, reps: int) -> tuple[list[tuple[float, int, str]], float]:
+    """(device us, launches, name) of every kernel that ``reps`` calls of
+    ``run`` launch (torch.profiler), largest first, and the profiled
+    window's wall time in us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            runner(state)
+        for _ in range(reps):
+            run()
         torch.cuda.synchronize()
     window_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -658,6 +1111,13 @@ def phase_profile(runner, state) -> None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
         rows.append((dev, e.count, e.key))
     rows.sort(reverse=True)
+    return rows, window_us
+
+
+def phase_profile(runner, state) -> None:
+    """Device time by kernel over 2 steps (torch.profiler), grouped, and the
+    device's busy share of the profiled window."""
+    rows, window_us = profile_kernels(lambda: runner(state), 2)
     total = sum(r[0] for r in rows)
     if total <= 0:
         print("profile: torch.profiler recorded no device kernel time")
@@ -856,10 +1316,18 @@ def main() -> int:
     mark("augmentation timing")
     pool_times = phase_pool_timing()
     mark("K2/K3 timing")
-    # The trainer as a user runs it, without cuDNN's autotuning (the trainer
-    # does not turn it on).
-    phase_trainer()
-    mark("trainer")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        # The trainer and the serving CLIs as a user runs them, without
+        # cuDNN's autotuning (none of them turns it on).
+        last_pt = phase_trainer(Path(tmp))
+        mark("trainer")
+        serving_k2 = phase_serving(Path(tmp), last_pt)
+        mark("serving")
+    # K2 in float32, as serving runs it, at batch 30 and batch 1.
+    serving_pool = {f"batch{n}": phase_pool_timing(SERVE_POOL_SHAPES[n], torch.float32,
+                                                   backward=False)["K2"]
+                    for n in SERVE_POOL_SHAPES}
+    mark("K2 f32 timing")
     print("phases: " + ", ".join(
         f"{name} {t - before:.1f} s" for (_, before), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f} s after the imports")
@@ -874,10 +1342,13 @@ def main() -> int:
             "source": "stereo_depth_estimation_tpu_torch/csrc/maxpool.cu",
             "replaces": f"scripts/pool_lab.py:{line}",
             "launches": main_counts[name],
-            "max_abs_err": 0.0,  # phase_pool_checks requires equality
             "bound_by": "bytes",
             **pool_times[name],
         })
+    # K2 also runs every serving forward (float32): its launches there and
+    # its times at the serving shapes, summed over the four levels.
+    kernels[-2]["serving_launches"] = serving_k2
+    kernels[-2]["serving_f32"] = serving_pool
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,136 @@
+"""``foundation-stereo-eval`` on one GPU: offline metric evaluation of a
+checkpoint.
+
+Counterpart of ``stereo_depth_estimation_tpu/eval/evaluate.py``, with the
+same flags and the same JSON line:
+
+    python -m stereo_depth_estimation_tpu_torch.eval.evaluate \\
+        --dataset-root <root> --checkpoint <last.pt> [--device cpu]
+
+Scores a reference ``.pt`` checkpoint (the port's own, or the JAX package's
+export) on a side of the seeded split with the trainer's pixel-weighted
+metrics (mae/rmse/nll/sigma over valid pixels) and prints one JSON line. The
+model runs in float32 with its running BatchNorm statistics, as the JAX CLI
+builds it.
+
+The tail batch is not padded: eval-mode BatchNorm treats each sample on its
+own and every metric is a masked sum, so a short last batch gives the metrics
+the JAX CLI's padded one gives.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+from typing import Any
+
+from .._device import raise_refused, resolve_cli_device, single_device_refusals
+from ..data.dataset import StereoSampleLoader
+from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
+from ..data.samples import discover_samples, split_samples
+from ..models.unet import StereoUNet
+from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
+from ..parallel.train_step import TrainState, make_eval_step
+from ..training.checkpoint import load_model_variables, resolve_checkpoint_path
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Score a trained checkpoint on a dataset split "
+                    "(pixel-weighted mae/rmse/nll, same math as training)."
+    )
+    parser.add_argument("--dataset-root", type=str, required=True)
+    parser.add_argument("--split", type=str, default="val",
+                        choices=("val", "train", "all"),
+                        help="Which side of the seeded split to score.")
+    parser.add_argument("--val-fraction", type=float, default=0.1)
+    parser.add_argument("--seed", type=int, default=42,
+                        help="Split seed; match the training run's.")
+    parser.add_argument("--height", type=int, default=240)
+    parser.add_argument("--width", type=int, default=320)
+    parser.add_argument("--batch-size", type=int, default=30)
+    parser.add_argument("--max-samples", type=int, default=0)
+    parser.add_argument("--num-workers", type=int, default=4)
+    parser.add_argument("--cache-root", type=str, default=None)
+    parser.add_argument("--require-cache", action="store_true")
+    parser.add_argument("--checkpoint", type=Path, default=None,
+                        help="Reference .pt file (the port reads no Orbax "
+                             "directory).")
+    parser.add_argument("--run-id", type=str, default=None)
+    parser.add_argument("--output-dir", type=Path, default=Path("outputs"))
+    parser.add_argument("--checkpoint-name", type=str, default="last")
+    parser.add_argument("--base-channels", type=int, default=32,
+                        help="UNet width; must match the checkpoint's.")
+    parser.add_argument("--device", type=str, default="auto",
+                        help="auto (= cuda), cuda or cpu.")
+    parser.add_argument("--mesh-devices", type=int, default=0,
+                        help="Devices on the data axis; the port runs on one "
+                             "(0 or 1).")
+    parser.add_argument("--spatial-devices", type=int, default=1,
+                        help="Height sharding; the port takes only 1.")
+    parser.add_argument("--aot-cache", type=str, default="auto",
+                        help="The JAX CLI's executable cache; the eager port "
+                             "has none and takes only 'auto' or 'off'.")
+    return parser
+
+
+def evaluate(args: argparse.Namespace) -> dict[str, Any]:
+    device = resolve_cli_device(args.device)
+    raise_refused(single_device_refusals(
+        device, mesh_devices=args.mesh_devices, spatial_devices=args.spatial_devices,
+        aot_cache=args.aot_cache,
+    ))
+    samples = discover_samples(args.dataset_root)
+    if args.max_samples > 0:
+        samples = samples[: args.max_samples]
+    if args.split != "all":
+        train_s, val_s = split_samples(samples, args.val_fraction, args.seed)
+        samples = val_s if args.split == "val" else train_s
+    if not samples:
+        raise ValueError(f"No samples to evaluate (split={args.split}).")
+
+    checkpoint_path = resolve_checkpoint_path(
+        args.output_dir, checkpoint=args.checkpoint, run_id=args.run_id,
+        checkpoint_name=args.checkpoint_name,
+    )
+    model = StereoUNet(base_channels=args.base_channels, device=device)
+    ckpt_meta = load_model_variables(checkpoint_path, model)
+    # The eval step reads only the model; nothing here trains.
+    state = TrainState(model=model, optimizer=None, generator=None)
+    eval_step = make_eval_step()
+
+    loader = StereoSampleLoader(
+        samples, image_size=(args.height, args.width),
+        cache_root=args.cache_root, require_cache=args.require_cache,
+    )
+    total: LossStats | None = None
+    batches = prefetch_to_device(
+        batch_iterator(
+            loader_fetch(loader, num_workers=args.num_workers),
+            len(loader), args.batch_size,
+        ),
+        put=cuda_put(device),
+    )
+    for batch in batches:
+        total = accumulate_stats(total, eval_step(state, batch))
+    assert total is not None
+    metrics = metrics_from_stats(total)
+    result = {
+        "checkpoint": str(checkpoint_path),
+        "checkpoint_epoch": int(ckpt_meta.get("epoch", -1)),
+        "split": args.split,
+        "samples": len(samples),
+        "valid_pixels": int(total.valid_count),
+        **{k: round(v, 6) for k, v in metrics.items()},
+    }
+    print(json.dumps(result))
+    return result
+
+
+def main(argv: list[str] | None = None) -> dict[str, Any]:
+    return evaluate(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,17 @@
-"""Host-side bilinear resize with PyTorch ``align_corners=False`` semantics.
+"""Bilinear resize with PyTorch ``align_corners=False`` semantics, on the
+host (numpy) and on the device (torch).
 
-Counterpart of ``resize_bilinear_np`` / ``resize_disparity_np`` in
-``stereo_depth_estimation_tpu/ops/resize.py``: half-pixel source centres, no
-anti-aliasing (the reference resizes with
+Counterpart of ``stereo_depth_estimation_tpu/ops/resize.py``: half-pixel
+source centres, no anti-aliasing (the reference resizes with
 ``F.interpolate(mode="bilinear", align_corners=False)``). Each 1-D resample is
 a small dense matrix with two non-zeros per row, applied as two matrix
-products. Disparity values are also scaled by the width ratio, because
-disparity is measured in horizontal pixels.
+products. On the device these are two ``einsum`` products in float64 with
+cached matrices: TF32 applies to float32 products only, so none enters them
+whatever the caller has set, as the JAX package holds its products at
+``Precision.HIGHEST``. (``F.interpolate`` computes its weights in float32
+and lands up to 8e-6 away from the JAX resize.) Disparity values are also
+scaled by the width ratio, because disparity is measured in horizontal
+pixels.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=128)
@@ -61,3 +67,31 @@ def resize_disparity_np(
     w_in = src_width if src_width is not None else disparity.shape[-1]
     resized = resize_bilinear_np(disparity, out_hw)
     return resized * np.float32(out_hw[1] / float(w_in))
+
+
+@functools.lru_cache(maxsize=32)
+def _resample_tensor(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``_resample_matrix`` in float64 on ``device``, copied there once."""
+    return torch.from_numpy(_resample_matrix(in_size, out_size)).to(device, torch.float64)
+
+
+def resize_bilinear(image: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Device resize of ``(..., H, W, C)`` tensors (NHWC or HWC) -> float32."""
+    h_out, w_out = out_hw
+    h_in, w_in = image.shape[-3], image.shape[-2]
+    x = image.to(torch.float32)
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    a_h = _resample_tensor(h_in, h_out, x.device)
+    a_w = _resample_tensor(w_in, w_out, x.device)
+    x = torch.einsum("oh,...hwc->...owc", a_h, x.to(torch.float64))
+    return torch.einsum("pw,...owc->...opc", a_w, x).to(torch.float32)
+
+
+def resize_disparity(
+    disparity: torch.Tensor, out_hw: tuple[int, int], src_width: int | None = None
+) -> torch.Tensor:
+    """Resize ``(..., H, W)`` disparity and scale its values by ``out_w / src_w``."""
+    w_in = src_width if src_width is not None else disparity.shape[-1]
+    resized = resize_bilinear(disparity[..., None], out_hw)[..., 0]
+    return resized * float(np.float32(out_hw[1] / float(w_in)))

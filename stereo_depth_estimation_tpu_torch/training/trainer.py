@@ -27,7 +27,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import raise_refused, resolve_cli_device, single_device_refusals
 from ..data.dataset import StereoSampleLoader
 from ..data.packed_cache import PackedCache, build_packed_cache, samples_fingerprint
 from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
@@ -61,28 +61,13 @@ def set_seed(seed: int) -> None:
     np.random.seed(seed)
 
 
-def resolve_train_device(device_arg: str) -> torch.device:
-    """``auto`` and ``cuda`` are the card (raising without CUDA); only
-    ``cpu`` runs on the CPU."""
-    if device_arg == "auto":
-        device_arg = "cuda"
-    if device_arg != "cpu" and not device_arg.startswith("cuda"):
-        raise ValueError(f'--device must be "auto", "cuda" or "cpu", got {device_arg!r}')
-    return resolve_device(device_arg)
-
-
 def check_supported(cfg: TrainConfig, device: torch.device) -> None:
     """Raise on a flag value whose mechanism the port does not have yet,
     naming the ROADMAP item that ports it."""
-    several_gpus = device.type == "cuda" and torch.cuda.device_count() > 1
-    refusals = [
-        (cfg.mesh_devices > 1 or (cfg.mesh_devices == 0 and several_gpus),
-         f"--mesh-devices {cfg.mesh_devices}: training over several GPUs "
-         "(ROADMAP Queue 1 item 8); the port trains on one, so pass "
-         "--mesh-devices 1"),
-        (cfg.spatial_devices != 1,
-         f"--spatial-devices {cfg.spatial_devices}: height sharding "
-         "(ROADMAP Queue 1 item 8)"),
+    raise_refused(single_device_refusals(
+        device, mesh_devices=cfg.mesh_devices, spatial_devices=cfg.spatial_devices,
+        aot_cache=cfg.aot_cache,
+    ) + [
         (cfg.multihost or cfg.coordinator_address is not None
          or cfg.num_processes is not None or cfg.process_id is not None,
          "--multihost and its address flags: multihost training "
@@ -90,14 +75,9 @@ def check_supported(cfg: TrainConfig, device: torch.device) -> None:
         (cfg.compile or cfg.compile_mode != "default" or cfg.compile_backend != "xla",
          "--compile, --compile-mode, --compile-backend: compiling the step "
          "(ROADMAP Queue 1 item 9); the port runs eagerly"),
-        (cfg.aot_cache not in ("auto", "off") or cfg.aot_cache_multihost,
-         f"--aot-cache {cfg.aot_cache} / --aot-cache-multihost: the "
-         "executable cache (ROADMAP Queue 1 item 9); an eager port has none, "
-         "so only 'auto' and 'off' are accepted"),
-    ]
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"not ported yet: {what}")
+        (cfg.aot_cache_multihost,
+         "--aot-cache-multihost: the executable cache (ROADMAP Queue 1 item 9)"),
+    ])
 
 
 def augment_config_from(cfg: TrainConfig) -> AugmentConfig | None:
@@ -388,7 +368,7 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
     metrics, how the train set was fed (``device_resident``: "pinned",
     "rotating" or "off"), and the final ``TrainState``."""
     set_seed(cfg.seed)
-    device = resolve_train_device(cfg.device)
+    device = resolve_cli_device(cfg.device)
     check_supported(cfg, device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"Using 1 device: {device} ({name})")

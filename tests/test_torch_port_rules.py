@@ -36,14 +36,16 @@ def test_no_jax_imports(path) -> None:
     assert not _imported_roots(path) & FORBIDDEN
 
 
-def test_port_imports_with_jax_blocked() -> None:
+def _import_all_with_blocked(blocked: list[str]) -> None:
+    """Import every module of the port, chip_smoke.py and augment_timing.py
+    in a fresh interpreter where importing any of ``blocked`` raises."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
     )
     code = (
         "import sys\n"
-        f"for name in {sorted(FORBIDDEN)!r}:\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None  # any import of it raises\n"
         "import importlib\n"
         f"for m in {modules + ['chip_smoke', 'augment_timing']!r}:\n"
@@ -56,6 +58,16 @@ def test_port_imports_with_jax_blocked() -> None:
     )
     assert done.returncode == 0, done.stderr
     assert "imported" in done.stdout
+
+
+def test_port_imports_with_jax_blocked() -> None:
+    _import_all_with_blocked(sorted(FORBIDDEN))
+
+
+def test_port_imports_with_cv2_blocked() -> None:
+    """OpenCV is needed only by the camera, GUI and headless-PNG paths, and
+    is imported inside the functions that use it."""
+    _import_all_with_blocked(["cv2"])
 
 
 def test_asking_for_cuda_without_it_raises() -> None:
