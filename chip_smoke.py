@@ -20,7 +20,16 @@ plain PyTorch version on the card, and drives the port's two paths:
   float32): the evaluate CLI (held against ``make_eval_step`` on the CPU),
   the predict CLI, and the live engine (640x480 captures rectified and
   resized to 240x320, batch 1) held against itself on the CPU and
-  hot-reloaded; K2 four times per forward.
+  hot-reloaded; K2 four times per forward;
+- data-parallel training on two ranks: two processes join one gloo group
+  on the card (NCCL refuses two ranks on one GPU; gloo runs ``all_reduce``
+  and ``broadcast`` on CUDA tensors, all the step needs). They take three
+  full-width float32 steps in a row on the two stripes of a batch of 32,
+  each held against one rank taking it over the whole batch from the two
+  ranks' state before it, then run the trainer CLI with ``--multihost
+  --num-processes 2`` on the trainer phase's dataset for one epoch, each
+  rank running every kernel; then the script itself joins a one-rank NCCL
+  group through the CLI's default backend.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
@@ -88,6 +97,12 @@ from stereo_depth_estimation_tpu_torch.parallel import (
     make_train_step,
     train_step,
 )
+from stereo_depth_estimation_tpu_torch.parallel.distributed import (
+    initialize_multihost,
+    next_farm_port,
+    run_process_farm,
+)
+from stereo_depth_estimation_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch_to_mesh
 from stereo_depth_estimation_tpu_torch.training import checkpoint, trainer
 
 BATCH, HW, PAYLOAD, STEPS, WARMUP = 128, (240, 320), 512, 5, 2
@@ -123,6 +138,27 @@ TF32_TOL = 1e-2
 # at batch 30, each call timed on its own; the CPU reference for predict_fn
 # takes the batch's first CPU_PAIRS pairs (eval-mode BN is per sample).
 SERVE_REPS, CPU_PAIRS = 12, 2
+# Multi-rank phase: two ranks take MR_STEPS float32 steps in a row of the
+# full-width model (base 32, 240x320, no augmentation, seed-0 weights) on the
+# two stripes of a global batch of MR_BATCH; each step is held against one
+# rank taking that step over the whole batch from the same state (weights,
+# BatchNorm statistics, AdamW moments and count, saved by rank 0 before the
+# step). Then the trainer CLI on two ranks for MR_EPOCHS epoch.
+MR_BATCH, MR_STEPS, MR_EPOCHS = 32, 3, 1
+# Two ranks vs one, both on the card, TF32 off, from the same state. Float
+# noise separates them (the cross-rank BatchNorm's E[x^2] - E[x]^2,
+# convolutions at batch 16 against 32, the gradient all-reduce): the summed
+# LossStats within MR_STATS_RTOL relative, each BatchNorm running statistic
+# within MR_BN_RTOL of its norm, each gradient leaf within MR_GRAD_RTOL of its
+# norm (floored as GRAD_FLOOR says), and weights over lr/2 apart only where
+# the two gradients are float noise across zero (the reference step's rule).
+# Each limit is a small factor above what an H100 read (PERF.md section 6);
+# the gradient's is the 0.8% a ReLU kink moves a leaf by on the reference
+# step. One rank's own consecutive steps are not held to these:
+# where a gradient is float noise, AdamW's first update lr * g / (|g| + eps)
+# lands anywhere in [-lr, lr], and the next steps amplify it
+# (``rank_drift.py`` measures that drift).
+MR_STATS_RTOL, MR_BN_RTOL, MR_GRAD_RTOL = 1e-6, 5e-6, 0.008
 # The train step before the pools ran on K2/K3, same path and card
 # (PERF.md section 5, H100 80GB HBM3 at 700 W).
 BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
@@ -965,6 +1001,342 @@ def check_live(tmp: Path, ckpt: Path, calib: dict[str, np.ndarray]) -> int:
     return live_counts["K2"]
 
 
+def multi_rank_steps(mesh: Mesh, batch: dict[str, torch.Tensor], steps: int,
+                     save_to: Path | None = None) -> dict:
+    """``steps`` float32 train steps of the full-width model from seed-0
+    weights on ``mesh`` (no augmentation): each step's summed LossStats and
+    gradients (on the host), the weights and buffers after them, seconds.
+    With ``save_to``, the train state before each step and after the last
+    is saved there as ``state<k>.pt``."""
+    model = StereoUNet(base_channels=32, device=mesh.device,
+                       generator=torch.Generator().manual_seed(0),
+                       bn_group=mesh.group if mesh.distributed else None)
+    state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), 0, mesh)
+    step = make_train_step(None, mesh)
+    out = {"stats": [], "grads": [], "seconds": 0.0}
+    for k in range(steps + 1):
+        if save_to is not None:
+            checkpoint.save_checkpoint(save_to, f"state{k}", state, epoch=k, config={},
+                                       metrics={})
+        if k == steps:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = step(state, batch)
+        out["stats"].append([float(s) for s in stats])
+        out["seconds"] += time.perf_counter() - t0
+        out["grads"].append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    out["weights"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return out
+
+
+def one_rank_steps_from(states: Path, batch: dict[str, torch.Tensor], steps: int) -> list:
+    """For each k < ``steps``, one float32 step on one rank over ``batch``
+    from the train state saved as ``states/state<k>.pt``: its LossStats,
+    gradients, the weights after it and its seconds. One model, built once,
+    loads each state."""
+    model = StereoUNet(base_channels=32, device="cuda")
+    state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), 0)
+    step = make_train_step(None)
+    out = []
+    for k in range(steps):
+        state, _ = checkpoint.load_train_state(states / f"state{k}.pt", state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = step(state, batch)
+        stats = [float(s) for s in stats]
+        out.append({"stats": stats, "seconds": time.perf_counter() - t0,
+                    "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                    "weights": {n: v.detach().to("cpu", copy=True)
+                                for n, v in model.state_dict().items()}})
+    return out
+
+
+def largest_leaf_gap(want: dict, got: dict) -> tuple[float, str]:
+    """The largest gap between two sets of gradients, leaf by leaf, relative
+    to the leaf's norm in ``want`` (floored at GRAD_FLOOR of the largest
+    norm), and that leaf's name."""
+    top = max(float(g.norm()) for g in want.values())
+    return max((float((got[n] - g).norm()) / max(float(g.norm()), GRAD_FLOOR * top), n)
+               for n, g in want.items())
+
+
+def mr_batch() -> dict[str, np.ndarray]:
+    """The multi-rank check's global batch: random uint8 pairs, targets with
+    8 invalid rows everywhere and half of every image of the second stripe
+    invalid, so the two ranks' valid counts differ. The second stripe's
+    pixels are darker (below 128), so a rank's own BatchNorm statistics are
+    far from the global ones and a step that used them would be off."""
+    rng = np.random.default_rng(9)
+    target = rng.uniform(0.5, 64.0, (MR_BATCH, *HW)).astype(np.float32)
+    target[:, :8] = 0.0
+    target[MR_BATCH // 2:, :, : HW[1] // 2] = 0.0
+    inputs = rng.integers(0, 256, (MR_BATCH, *HW, 6), dtype=np.uint8)
+    inputs[MR_BATCH // 2:] //= 2
+    return {"input": inputs, "target": target}
+
+
+def trainer_argv(tmp: Path, *extra: str) -> list[str]:
+    return [
+        "--dataset-root", str(tmp / "data"), "--packed-cache-root", str(tmp / "packed"),
+        "--height", str(HW[0]), "--width", str(HW[1]), "--base-channels", "32",
+        "--compute-dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH),
+        "--device-resident", "auto", "--preview-samples", "4", "--log-every-batches", "2",
+        *extra,
+    ]
+
+
+def timed_train_epochs() -> list[float]:
+    """Seconds of each call of the trainer's epoch loop (training only, not
+    validation or saves), recorded into the returned list."""
+    seconds: list[float] = []
+    inner = trainer.run_train_epoch
+
+    def run_train_epoch(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return result
+
+    trainer.run_train_epoch = run_train_epoch
+    return seconds
+
+
+def rank_child(rank: int, tmp_dir: str) -> None:
+    """One of the two ranks of the multi-rank phase, in a process of its
+    own on cuda:0 (``python -c``, from the repository root): the steps, then
+    the trainer CLI; prints one RESULT line."""
+    marks = {"imported": time.time()}
+    tmp = Path(tmp_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    address = f"file://{tmp / 'rendezvous'}"
+    initialize_multihost(address, 2, rank, device=device, backend="gloo")
+    mesh = make_mesh(device)
+    marks["joined"] = time.time()
+    batch = shard_batch_to_mesh(mr_batch(), mesh)
+    steps = multi_rank_steps(mesh, batch, MR_STEPS, tmp / "mr_states" if rank == 0 else None)
+    torch.save(steps if rank == 0 else {"weights": steps["weights"]}, tmp / f"mr_rank{rank}.pt")
+    del batch, steps
+    torch.cuda.empty_cache()
+    marks["stepped"] = time.time()
+    collective_ms = time_collectives(device)
+    marks["collectives"] = time.time()
+
+    epoch_seconds = timed_train_epochs()
+    summary, run_counts, seconds = counted(trainer.main, trainer_argv(
+        tmp, "--epochs", str(MR_EPOCHS), "--mlflow-tracking-uri", str(tmp / "mr_mlruns"),
+        "--output-dir", str(tmp / "mr_outputs"), "--multihost", "--coordinator-address",
+        address, "--num-processes", "2", "--process-id", str(rank)))
+    summary.pop("state")
+    torch.distributed.destroy_process_group()
+    marks["trained"] = time.time()
+    print("RESULT " + json.dumps({"rank": rank, "summary": summary, "counts": run_counts,
+                                  "seconds": seconds, "epoch_train_seconds": epoch_seconds,
+                                  "collective_ms": collective_ms, "marks": marks}),
+          flush=True)
+
+
+def time_collectives(device: torch.device) -> dict[str, float]:
+    """The step's collectives alone on the group, each timed to completion
+    on the host (gloo on CUDA waits for the stream and goes through host
+    memory): the gradient all-reduce (every parameter, float32) and the 36
+    BatchNorm all-reduces of one step (18 forward, 18 backward; 2C + 1
+    floats each at base 32)."""
+    grads = torch.zeros(7_763_938, device=device)
+    widths = [2 * c + 1 for c in (32, 64, 128, 256, 512, 256, 128, 64, 32) for _ in (0, 1)]
+    small = [torch.zeros(n, device=device) for n in widths * 2]
+    times = {}
+    for name, tensors, reps in (("gradients", [grads], 5), ("batchnorm", small, 5)):
+        torch.distributed.all_reduce(tensors[0])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for t in tensors:
+                torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return times
+
+
+def check_nccl_rank(tmp: Path) -> dict:
+    """One rank in a group of one, in this process, on the backend the CLI
+    picks for CUDA: NCCL initialises on the card and runs its collectives; a
+    train step on this one-rank mesh equals the step without a group,
+    bitwise; then the trainer CLI with ``--multihost --num-processes 1`` for
+    one epoch, in that group. The group is destroyed after."""
+    device = torch.device("cuda", 0)
+    address = f"127.0.0.1:{next_farm_port(29500)}"
+    initialize_multihost(address, 1, 0, device=device)
+    try:
+        backend = torch.distributed.get_backend()
+        probe = torch.arange(4.0, device=device)
+        torch.distributed.all_reduce(probe)
+        torch.distributed.broadcast(probe, 0)
+        mesh = make_mesh(device)
+        batch = {k: torch.from_numpy(v[:4]).to(device) for k, v in mr_batch().items()}
+        torch.backends.cudnn.deterministic = True  # the two steps compare bitwise
+        try:
+            grouped = multi_rank_steps(mesh, batch, 1)
+            alone = multi_rank_steps(Mesh(device), batch, 1)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        summary, run_counts, _ = counted(trainer.main, trainer_argv(
+            tmp, "--epochs", "1", "--mlflow-tracking-uri", str(tmp / "nccl_mlruns"),
+            "--output-dir", str(tmp / "nccl_outputs"), "--multihost", "--coordinator-address",
+            address, "--num-processes", "1", "--process-id", "0"))
+    finally:
+        torch.distributed.destroy_process_group()
+    equal = grouped["stats"] == alone["stats"] and all(
+        torch.equal(grouped["weights"][k], v) for k, v in alone["weights"].items())
+    return {"backend": backend, "world": mesh.world_size, "probe": probe.tolist(),
+            "step_equal": equal, "global_step": summary["global_step"], "counts": run_counts}
+
+
+def phase_multi_rank(tmp: Path) -> dict[str, list[int]]:
+    """Two gloo ranks on the card against one rank, the trainer CLI on two
+    ranks, and one NCCL rank (see the module docstring). Returns each
+    kernel's launches on each rank in the two-rank trainer run."""
+    repo = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    started = time.time()
+    farm = run_process_farm(
+        "import sys, chip_smoke; chip_smoke.rank_child(int(sys.argv[1]), sys.argv[2])",
+        lambda i: [str(i), str(tmp)], num_processes=2, timeout=600, cwd=repo)
+    results = [json.loads(line) for line, _ in farm]
+    farm_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"mr_rank{r}.pt", weights_only=False) for r in range(2)]
+    two = ranks[0]
+    bitwise = all(torch.equal(v, ranks[1]["weights"][k]) for k, v in two["weights"].items())
+    check(bitwise, "the two ranks' weights differ")
+
+    data = mr_batch()
+    counts_valid = [int((data["target"][s] > 0).sum())
+                    for s in (slice(0, MR_BATCH // 2), slice(MR_BATCH // 2, None))]
+    check(two["stats"][0][4] == float(sum(counts_valid)), "valid count is not the global one")
+    whole = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    stats_gap = grad_gap = bn_gap = 0.0
+    grad_leaf = bn_buffer = ""
+    apart = total = 0
+    ones = one_rank_steps_from(tmp / "mr_states", whole, MR_STEPS)
+    del whole
+    for k, one in enumerate(ones):
+        after = torch.load(tmp / "mr_states" / f"state{k + 1}.pt",
+                           weights_only=False)["model_state_dict"]
+        stats_gap = max(stats_gap, *(abs(a - b) / max(abs(b), 1e-12)
+                                     for a, b in zip(two["stats"][k], one["stats"])))
+        g1, g2 = one["grads"], two["grads"][k]
+        gap, leaf = largest_leaf_gap(g1, g2)
+        if gap > grad_gap:
+            grad_gap, grad_leaf = gap, f"{leaf} at step {k + 1}"
+        for n, w in one["weights"].items():
+            w2 = after[n].cpu()
+            if n in g1:
+                far = (w2 - w).abs() > 5e-4
+                noise = 2 * (g2[n] - g1[n]).abs() >= torch.minimum(
+                    g1[n].abs(), g2[n].abs()) + 1e-8
+                wrong = int((far & ~noise).sum())
+                check(wrong == 0, f"two ranks vs one at step {k + 1}: {wrong} weights of {n} "
+                      "over lr/2 apart where their gradients agree")
+                apart += int(far.sum())
+                total += w.numel()
+            elif n.endswith(("running_mean", "running_var")):
+                rel = float((w2 - w).norm()) / max(float(w.norm()), 1e-12)
+                if rel > bn_gap:
+                    bn_gap, bn_buffer = rel, f"{n} at step {k + 1}"
+            else:
+                check(torch.equal(w2, w), f"two ranks vs one at step {k + 1}: {n}")
+    check(stats_gap <= MR_STATS_RTOL, f"two ranks vs one: LossStats gap {stats_gap:.3g}")
+    check(grad_gap <= MR_GRAD_RTOL, f"two ranks vs one: gradient of {grad_leaf} differs by "
+          f"{grad_gap:.3g} of its norm")
+    check(bn_gap <= MR_BN_RTOL, f"two ranks vs one: {bn_buffer} differs by {bn_gap:.3g}")
+    print(f"multi-rank: 2 gloo ranks on cuda:0, base 32 f32 (TF32 off) {HW[0]}x{HW[1]}, "
+          f"global batch {MR_BATCH} as 2 x {MR_BATCH // 2} (valid pixels {counts_valid[0]} "
+          f"and {counts_valid[1]}; the second stripe's pixels below 128), {MR_STEPS} steps in "
+          f"a row, each held against one rank taking it over the whole batch from the two "
+          f"ranks' state before it: LossStats within {stats_gap:.3g} (tol "
+          f"{MR_STATS_RTOL:g}); gradients within {grad_gap:.3g} of their norm (largest in "
+          f"{grad_leaf}; tol {MR_GRAD_RTOL:g}); {apart} of {total} weight updates over lr/2 "
+          f"apart, each where its gradient is float noise across zero; BN running "
+          f"statistics within {bn_gap:.3g} (largest {bn_buffer}; tol {MR_BN_RTOL:g}); the "
+          f"ranks' weights bitwise equal after the steps ok; two ranks "
+          f"{1e3 * two['seconds'] / MR_STEPS:.1f} ms/step, one rank "
+          f"{', '.join(f'{1e3 * o["seconds"]:.1f}' for o in ones)} ms (one model loading "
+          f"each state: cuDNN's first choices in the first)")
+
+    # The trainer CLI on the two ranks.
+    summaries = [r["summary"] for r in results]
+    train_n = len(split_samples(discover_samples(tmp / "data"), 0.1, 42)[0])
+    steps_per_epoch = train_n // TRAIN_BATCH  # pinned, padded to the world size
+    steps = MR_EPOCHS * steps_per_epoch
+    val_batches = 1
+    check([s["global_step"] for s in summaries] == [steps, steps],
+          f"two-rank trainer global steps {[s['global_step'] for s in summaries]}")
+    check(summaries[1]["run_id"] == "multihost-follower" != summaries[0]["run_id"]
+          and all(s["device_resident"] == "pinned" for s in summaries),
+          f"two-rank trainer summaries {summaries}")
+    for a, b in zip(*(s["epochs"] for s in summaries)):
+        check(a["val_mae"] == b["val_mae"] and math.isfinite(a["val_mae"]),
+              f"ranks' val_mae {a['val_mae']} vs {b['val_mae']}")
+    runs = sorted((tmp / "mr_outputs").iterdir())
+    check([r.name for r in runs] == [summaries[0]["run_id"]], f"run directories {runs}")
+    last = runs[0] / "checkpoints" / "last.pt"
+    check(last.is_file(), "no last.pt from the two-rank trainer")
+    tracked = {p.parent.parent for p in (tmp / "mr_mlruns").glob("*/*/metrics/*")}
+    check(len(tracked) == 1, f"tracking runs {tracked}")
+    launches: dict[str, list[int]] = {}
+    for r, result in enumerate(results):
+        previews = MR_EPOCHS if r == 0 else 0
+        expected = {"GM": steps, "K1": steps, "K3": 4 * steps,
+                    "K2": 4 * (steps + MR_EPOCHS * val_batches + previews)}
+        got = {k: result["counts"][k] for k in expected}
+        check(got == expected, f"rank {r} trainer launches {got}, expected {expected}")
+        for k, v in got.items():
+            launches.setdefault(k, []).append(v)
+    evaluated = evaluate.main(["--dataset-root", str(tmp / "data"), "--checkpoint", str(last),
+                               "--height", str(HW[0]), "--width", str(HW[1]),
+                               "--batch-size", str(SERVE_BATCH)])
+    check(evaluated["checkpoint_epoch"] == MR_EPOCHS and math.isfinite(evaluated["mae"]),
+          f"evaluate of the two-rank last.pt: {evaluated}")
+    step_ms = [1e3 * r["epoch_train_seconds"][-1] / steps_per_epoch for r in results]
+    marks = results[0]["marks"]
+    split = {"start and imports": marks["imported"] - started,
+             "rendezvous": marks["joined"] - marks["imported"],
+             f"{MR_STEPS} steps with model build and saved states":
+                 marks["stepped"] - marks["joined"],
+             "collectives timing": marks["collectives"] - marks["stepped"],
+             "trainer CLI": marks["trained"] - marks["collectives"]}
+    print(f"multi-rank: trainer CLI --multihost --num-processes 2 (gloo, both ranks on "
+          f"cuda:0), base 32 bf16, global batch {TRAIN_BATCH} as 2 x {TRAIN_BATCH // 2}, "
+          f"pinned, {MR_EPOCHS} epoch of {steps_per_epoch} steps: rank 0 alone wrote "
+          f"last.pt and the tracking run, evaluate reads its last.pt (val mae "
+          f"{evaluated['mae']:.4f}); launches per rank {[r['counts'] for r in results]} ok; "
+          f"training {step_ms[0]:.1f} / {step_ms[1]:.1f} ms per step on ranks 0 / 1 "
+          f"(cuDNN's first choices included; two ranks share one card and gloo goes "
+          f"through the host: not a scaling figure); the step's collectives alone on rank 0: gradient all-reduce "
+          f"{results[0]['collective_ms']['gradients']:.1f} ms, the 36 BatchNorm all-reduces "
+          f"{results[0]['collective_ms']['batchnorm']:.1f} ms; {farm_s:.1f} s with both "
+          f"processes' start (rank 0: "
+          f"{', '.join(f'{name} {t:.1f} s' for name, t in split.items())})")
+
+    nccl = check_nccl_rank(tmp)
+    check(nccl["backend"] == "nccl" and nccl["world"] == 1 and nccl["probe"] == [0, 1, 2, 3],
+          f"NCCL rank: {nccl}")
+    check(nccl["step_equal"], "a step on the one-rank NCCL mesh differs from the step "
+          "without a group")
+    check(nccl["global_step"] == steps_per_epoch and nccl["counts"]["K1"] == steps_per_epoch,
+          f"NCCL trainer run: {nccl}")
+    print(f"multi-rank: one rank on NCCL (the CLI's default backend for CUDA), in this "
+          f"process: initialised, all_reduce and broadcast ran; a step on its one-rank mesh "
+          f"equals the step without a group bitwise; trainer CLI --multihost "
+          f"--num-processes 1 ran {nccl['global_step']} steps with launches "
+          f"{nccl['counts']} ok ({time.perf_counter() - t0:.1f} s for the whole phase)")
+    return launches
+
+
 def phase_reference_step() -> None:
     """One train step on a small input, on the card (kernel augmentation)
     and on the CPU (plain augmentation), from the same weights and batch."""
@@ -1323,6 +1695,8 @@ def main() -> int:
         mark("trainer")
         serving_k2 = phase_serving(Path(tmp), last_pt)
         mark("serving")
+        multi_rank = phase_multi_rank(Path(tmp))
+        mark("multi-rank")
     # K2 in float32, as serving runs it, at batch 30 and batch 1.
     serving_pool = {f"batch{n}": phase_pool_timing(SERVE_POOL_SHAPES[n], torch.float32,
                                                    backward=False)["K2"]
@@ -1335,6 +1709,8 @@ def main() -> int:
     # K2/K3: sums over the main path's four pool shapes (per-shape figures
     # on the "pool timing:" lines); the library call is F.max_pool2d with
     # indices and its backward, which the port never calls.
+    kernels[0]["multi_rank_launches"] = multi_rank["K1"]
+    kernels[1]["multi_rank_launches"] = multi_rank["GM"]
     for name, fn, line in (("K2", "maxpool2x2_fwd", 91), ("K3", "maxpool2x2_bwd", 112)):
         kernels.append({
             "name": fn,
@@ -1344,6 +1720,7 @@ def main() -> int:
             "launches": main_counts[name],
             "bound_by": "bytes",
             **pool_times[name],
+            "multi_rank_launches": multi_rank[name],
         })
     # K2 also runs every serving forward (float32): its launches there and
     # its times at the serving shapes, summed over the four levels.

@@ -1,5 +1,6 @@
-"""Device selection shared by the port's entry points, and the refusal of
-command-line flags whose mechanism the port does not have yet."""
+"""Device selection shared by the port's entry points, the number of ranks a
+process starts, and the refusal of command-line flags whose mechanism the
+port does not have yet."""
 
 from __future__ import annotations
 
@@ -31,19 +32,45 @@ def resolve_cli_device(device_arg: str) -> torch.device:
     return resolve_device(device_arg)
 
 
-def single_device_refusals(
-    device: torch.device, *, mesh_devices: int = 1, spatial_devices: int = 1,
-    aot_cache: str = "off",
+def local_rank_count(
+    device: torch.device, mesh_devices: int, *, env_rendezvous: bool = False
+) -> int:
+    """The ranks one process starts for ``--mesh-devices``: that many, or
+    with 0 every visible GPU (one on the CPU). A CUDA run that asks for more
+    ranks than there are visible GPUs raises: ranks never share a card.
+
+    With ``env_rendezvous`` (``--multihost`` without address flags) a
+    launcher starts one process a rank, so each process runs one, on its
+    ``LOCAL_RANK``'s GPU; ``--mesh-devices`` above 1 raises."""
+    if env_rendezvous:
+        if mesh_devices > 1:
+            raise ValueError(
+                f"--mesh-devices {mesh_devices} with --multihost and no address flags: "
+                "the environment's WORLD_SIZE counts the ranks, one a process; start one "
+                "process per GPU and leave --mesh-devices at 0 or 1"
+            )
+        return 1
+    if device.type != "cuda":
+        return max(mesh_devices, 1)
+    visible = torch.cuda.device_count()
+    wanted = mesh_devices or visible
+    if wanted > visible:
+        raise ValueError(
+            f"--mesh-devices {mesh_devices}: {visible} GPU(s) visible, and each "
+            "rank needs a card of its own"
+        )
+    return wanted
+
+
+def unported_refusals(
+    *, spatial_devices: int = 1, aot_cache: str = "off"
 ) -> list[tuple[bool, str]]:
-    """(refused, what) for the JAX CLIs' multi-device, spatial and
-    executable-cache flags: the port runs on one device, eagerly."""
-    several_gpus = device.type == "cuda" and torch.cuda.device_count() > 1
+    """(refused, what) for the JAX CLIs' spatial and executable-cache flags,
+    whose mechanisms the port does not have."""
     return [
-        (mesh_devices > 1 or (mesh_devices == 0 and several_gpus),
-         f"--mesh-devices {mesh_devices}: several GPUs (ROADMAP Queue 1 item 8); "
-         "the port runs on one, so pass --mesh-devices 1"),
         (spatial_devices != 1,
-         f"--spatial-devices {spatial_devices}: height sharding (ROADMAP Queue 1 item 8)"),
+         f"--spatial-devices {spatial_devices}: height sharding (ROADMAP Queue 1 "
+         "item 11)"),
         (aot_cache not in ("auto", "off"),
          f"--aot-cache {aot_cache}: the executable cache (ROADMAP Queue 1 item 9); "
          "an eager port has none, so only 'auto' and 'off' are accepted"),

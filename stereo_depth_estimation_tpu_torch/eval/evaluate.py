@@ -1,5 +1,5 @@
-"""``foundation-stereo-eval`` on one GPU: offline metric evaluation of a
-checkpoint.
+"""``foundation-stereo-eval``: offline metric evaluation of a checkpoint, on
+one GPU or several.
 
 Counterpart of ``stereo_depth_estimation_tpu/eval/evaluate.py``, with the
 same flags and the same JSON line:
@@ -16,6 +16,11 @@ builds it.
 The tail batch is not padded: eval-mode BatchNorm treats each sample on its
 own and every metric is a masked sum, so a short last batch gives the metrics
 the JAX CLI's padded one gives.
+
+``--mesh-devices N`` scores on N ranks, one GPU each, as the JAX CLI shards
+over N devices: each rank fetches its stripe of every batch, padded with
+flagged wrap rows to the world size (``MultihostBatcher``), and the metric
+sums are summed over the ranks; rank 0 prints the line.
 """
 
 from __future__ import annotations
@@ -25,12 +30,14 @@ import json
 from pathlib import Path
 from typing import Any
 
-from .._device import raise_refused, resolve_cli_device, single_device_refusals
+from .._device import local_rank_count, raise_refused, resolve_cli_device, unported_refusals
 from ..data.dataset import StereoSampleLoader
 from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
 from ..data.samples import discover_samples, split_samples
 from ..models.unet import StereoUNet
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
+from ..parallel.distributed import MultihostBatcher, is_main_process, run_ranks
+from ..parallel.mesh import Mesh
 from ..parallel.train_step import TrainState, make_eval_step
 from ..training.checkpoint import load_model_variables, resolve_checkpoint_path
 
@@ -65,10 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="auto",
                         help="auto (= cuda), cuda or cpu.")
     parser.add_argument("--mesh-devices", type=int, default=0,
-                        help="Devices on the data axis; the port runs on one "
-                             "(0 or 1).")
+                        help="Ranks, one GPU each (0 = all visible GPUs; one "
+                             "rank on the CPU); batches split over them.")
     parser.add_argument("--spatial-devices", type=int, default=1,
-                        help="Height sharding; the port takes only 1.")
+                        help="Height sharding: not ported, only 1 is taken.")
     parser.add_argument("--aot-cache", type=str, default="auto",
                         help="The JAX CLI's executable cache; the eager port "
                              "has none and takes only 'auto' or 'off'.")
@@ -77,10 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def evaluate(args: argparse.Namespace) -> dict[str, Any]:
     device = resolve_cli_device(args.device)
-    raise_refused(single_device_refusals(
-        device, mesh_devices=args.mesh_devices, spatial_devices=args.spatial_devices,
-        aot_cache=args.aot_cache,
+    raise_refused(unported_refusals(
+        spatial_devices=args.spatial_devices, aot_cache=args.aot_cache,
     ))
+    local = local_rank_count(device, args.mesh_devices)
+    return run_ranks(evaluate_rank, (args,), device=device, local_ranks=local)
+
+
+def evaluate_rank(mesh: Mesh, args: argparse.Namespace) -> dict[str, Any]:
+    """Evaluate on one rank of ``mesh``; rank 0 prints the JSON line."""
+    device = mesh.device
     samples = discover_samples(args.dataset_root)
     if args.max_samples > 0:
         samples = samples[: args.max_samples]
@@ -98,18 +111,18 @@ def evaluate(args: argparse.Namespace) -> dict[str, Any]:
     ckpt_meta = load_model_variables(checkpoint_path, model)
     # The eval step reads only the model; nothing here trains.
     state = TrainState(model=model, optimizer=None, generator=None)
-    eval_step = make_eval_step()
+    eval_step = make_eval_step(mesh)
 
     loader = StereoSampleLoader(
         samples, image_size=(args.height, args.width),
         cache_root=args.cache_root, require_cache=args.require_cache,
     )
+    fetch = loader_fetch(loader, num_workers=args.num_workers)
+    if mesh.distributed:
+        fetch = MultihostBatcher(fetch, mesh)
     total: LossStats | None = None
     batches = prefetch_to_device(
-        batch_iterator(
-            loader_fetch(loader, num_workers=args.num_workers),
-            len(loader), args.batch_size,
-        ),
+        batch_iterator(fetch, len(loader), args.batch_size),
         put=cuda_put(device),
     )
     for batch in batches:
@@ -124,7 +137,8 @@ def evaluate(args: argparse.Namespace) -> dict[str, Any]:
         "valid_pixels": int(total.valid_count),
         **{k: round(v, 6) for k, v in metrics.items()},
     }
-    print(json.dumps(result))
+    if is_main_process():
+        print(json.dumps(result))
     return result
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from .._device import raise_refused, resolve_cli_device, single_device_refusals
+from .._device import raise_refused, resolve_cli_device, unported_refusals
 from ..data.samples import discover_samples, split_samples
 from ..models.unet import StereoUNet
 from ..ops.geometry import (
@@ -200,7 +200,7 @@ def _pairs(args: argparse.Namespace) -> list[tuple[str, Path, Path]]:
 
 def predict(args: argparse.Namespace) -> dict[str, Any]:
     device = resolve_cli_device(args.device)
-    raise_refused(single_device_refusals(device, aot_cache=args.aot_cache))
+    raise_refused(unported_refusals(aot_cache=args.aot_cache))
     pairs = _pairs(args)
 
     checkpoint_path = resolve_checkpoint_path(

@@ -35,7 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .._device import raise_refused, resolve_cli_device, resolve_device, single_device_refusals
+from .._device import raise_refused, resolve_cli_device, resolve_device, unported_refusals
 from ..models.unet import StereoUNet
 from ..ops.geometry import (
     center_patch_median,
@@ -334,7 +334,7 @@ def main(argv: list[str] | None = None) -> None:
     if not 0.0 <= args.ema_alpha <= 1.0:
         raise ValueError("--ema-alpha must be in [0, 1].")
     device = resolve_cli_device(args.device)
-    raise_refused(single_device_refusals(device, aot_cache=args.aot_cache))
+    raise_refused(unported_refusals(aot_cache=args.aot_cache))
 
     model_size = (args.model_width, args.model_height)
     checkpoint_path = resolve_checkpoint_path(

@@ -20,6 +20,12 @@ copy is made, and the model runs channels_last throughout. BatchNorm is
 unbiased variance into the running stats), the semantics the JAX package
 re-implements. ``compute_dtype=torch.bfloat16`` runs the convolutions in bf16
 under autocast while parameters and BatchNorm statistics stay float32.
+
+Built with ``bn_group``, a ``torch.distributed`` group of more than one rank,
+every BatchNorm is a ``MeshBatchNorm2d`` instead: its statistics are global
+over the group's ranks, as the JAX BatchNorm's are over the mesh. Its
+parameter and buffer names are ``nn.BatchNorm2d``'s, so checkpoints do not
+change.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -34,17 +41,83 @@ from .._device import resolve_device
 from ..ops.pool import max_pool_2x2
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group's ranks. The backward sums the incoming gradients
+    over the ranks the same way: each rank's sums feed every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class MeshBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose training statistics are global over a group of ranks,
+    computed as the JAX BatchNorm computes them
+    (``stereo_depth_estimation_tpu/models/unet.py:64-79``): one all-reduce of
+    the per-channel float32 sum and sum of squares and the element count,
+    var = E[x^2] - E[x]^2, normalised in float32 and returned in the input's
+    dtype; the unbiased factor n/(n-1) of the running variance takes the
+    global n. Eval mode uses the running statistics and no collective.
+
+    Not ``nn.SyncBatchNorm``: it refuses CPU tensors and gathers with
+    ``all_gather``, which gloo does not run on CUDA tensors; this module
+    needs only ``all_reduce``."""
+
+    def __init__(self, num_features: int, group) -> None:
+        super().__init__(num_features)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        c = self.num_features
+        xf = x.float()
+        local = torch.cat([
+            xf.sum(dim=(0, 2, 3)),
+            (xf * xf).sum(dim=(0, 2, 3)),
+            xf.new_full((1,), xf.numel() // c),
+        ])
+        total = _AllReduceSum.apply(local, self.group)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = total[c : 2 * c] / n - mean * mean
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            unbiased = var * (n / (n - 1.0).clamp(min=1.0))
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * unbiased)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * inv[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
+
+
+def _batch_norm(channels: int, group) -> nn.BatchNorm2d:
+    if group is not None and dist.get_world_size(group) > 1:
+        return MeshBatchNorm2d(channels, group)
+    return nn.BatchNorm2d(channels)
+
+
 class ConvBlock(nn.Module):
     """(Conv3x3 no-bias -> BatchNorm -> ReLU) x2."""
 
-    def __init__(self, in_channels: int, out_channels: int) -> None:
+    def __init__(self, in_channels: int, out_channels: int, bn_group=None) -> None:
         super().__init__()
         self.block = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels),
+            _batch_norm(out_channels, bn_group),
             nn.ReLU(inplace=True),
             nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels),
+            _batch_norm(out_channels, bn_group),
             nn.ReLU(inplace=True),
         )
 
@@ -61,9 +134,12 @@ class StereoUNet(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
+        bn_group=None,
     ) -> None:
         """``generator`` (a CPU generator) re-draws every conv weight and bias
-        from PyTorch's default distributions, so a seed fixes the weights."""
+        from PyTorch's default distributions, so a seed fixes the weights.
+        ``bn_group``: a ``torch.distributed`` group; with more than one rank
+        the BatchNorm statistics are global over it (``MeshBatchNorm2d``)."""
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
@@ -72,19 +148,19 @@ class StereoUNet(nn.Module):
         self.compute_dtype = compute_dtype
         c1 = base_channels
         c2, c3, c4, c5 = c1 * 2, c1 * 4, c1 * 8, c1 * 16
-        self.enc1 = ConvBlock(in_channels, c1)
-        self.enc2 = ConvBlock(c1, c2)
-        self.enc3 = ConvBlock(c2, c3)
-        self.enc4 = ConvBlock(c3, c4)
-        self.bottleneck = ConvBlock(c4, c5)
+        self.enc1 = ConvBlock(in_channels, c1, bn_group)
+        self.enc2 = ConvBlock(c1, c2, bn_group)
+        self.enc3 = ConvBlock(c2, c3, bn_group)
+        self.enc4 = ConvBlock(c3, c4, bn_group)
+        self.bottleneck = ConvBlock(c4, c5, bn_group)
         self.up4 = nn.ConvTranspose2d(c5, c4, 2, stride=2)
-        self.dec4 = ConvBlock(c4 + c4, c4)
+        self.dec4 = ConvBlock(c4 + c4, c4, bn_group)
         self.up3 = nn.ConvTranspose2d(c4, c3, 2, stride=2)
-        self.dec3 = ConvBlock(c3 + c3, c3)
+        self.dec3 = ConvBlock(c3 + c3, c3, bn_group)
         self.up2 = nn.ConvTranspose2d(c3, c2, 2, stride=2)
-        self.dec2 = ConvBlock(c2 + c2, c2)
+        self.dec2 = ConvBlock(c2 + c2, c2, bn_group)
         self.up1 = nn.ConvTranspose2d(c2, c1, 2, stride=2)
-        self.dec1 = ConvBlock(c1 + c1, c1)
+        self.dec1 = ConvBlock(c1 + c1, c1, bn_group)
         # Both heads always exist (the reference model defines both).
         self.disparity_head = nn.Conv2d(c1, out_channels, 1)
         self.logvar_head = nn.Conv2d(c1, 1, 1)

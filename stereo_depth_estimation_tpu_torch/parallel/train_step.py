@@ -1,7 +1,7 @@
 """Train / eval steps, AdamW with the JAX package's schedules, predict fn.
 
-Counterpart of ``stereo_depth_estimation_tpu/parallel/train_step.py`` on one
-device. One train step: uint8 batch -> augmentation (the CUDA kernel for CUDA
+Counterpart of ``stereo_depth_estimation_tpu/parallel/train_step.py``. One
+train step: uint8 batch -> augmentation (the CUDA kernel for CUDA
 tensors) -> StereoUNet forward with uncertainty -> masked Laplace NLL ->
 backward -> AdamW, with the zero-valid-batch no-op gate. Nothing in the step
 waits for the host: the loss statistics come back as device tensors, the
@@ -11,6 +11,16 @@ no-op gate selects on the device.
 PyTorch updates in place where JAX returns new arrays: a step mutates the
 ``TrainState`` it is given (model weights, BatchNorm running stats, optimizer
 state, step, generator) and returns it with the batch's ``LossStats``.
+
+On a mesh of several ranks (``parallel/mesh.py``) each rank runs this step on
+its stripe of the global batch, with the JAX package's global semantics: the
+model's BatchNorm statistics are global (``MeshBatchNorm2d``); the loss is the
+global masked mean, so each rank scales its NLL sum by world / global valid
+count and ``DistributedDataParallel``'s mean of the gradients is the global
+gradient; the returned ``LossStats`` are global sums; and the no-op gate
+tests the global valid count, so the ranks' weights never part. Each rank
+draws its augmentation from its own generator, seeded from (seed, rank). On
+one rank none of this runs: no wrapper, no collective.
 """
 
 from __future__ import annotations
@@ -19,12 +29,15 @@ import math
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
+from torch import nn
 
 from ..models.unet import StereoUNet
 from ..ops.augment import AugmentConfig, augment_stereo_batch
 from ..ops.augment_cuda import augment_stereo_batch_fused
 from ..ops.loss import LossStats, heteroscedastic_laplace_nll
+from .mesh import Mesh
 
 Batch = dict[str, torch.Tensor]
 
@@ -35,6 +48,8 @@ class TrainState:
     optimizer: torch.optim.AdamW
     generator: torch.Generator  # all of the step's randomness, on the model's device
     step: int = 0  # steps taken, zero-valid batches included
+    # On several ranks: DistributedDataParallel(model), which the step runs.
+    replica: nn.Module | None = None
 
 
 def make_lr_schedule(
@@ -112,13 +127,43 @@ def make_adamw(
     return opt
 
 
+def rank_seed(seed: int, mesh: Mesh | None) -> int:
+    """The generator seed of this rank: ``seed`` itself on one rank, else
+    one drawn from (seed, rank), so ranks draw different augmentations."""
+    if mesh is None or not mesh.distributed:
+        return seed
+    return int(np.random.SeedSequence((seed, mesh.rank)).generate_state(1)[0])
+
+
 def create_train_state(
-    model: StereoUNet, optimizer: torch.optim.AdamW, seed: int = 0
+    model: StereoUNet, optimizer: torch.optim.AdamW, seed: int = 0,
+    mesh: Mesh | None = None,
 ) -> TrainState:
+    """The train state; on a mesh of several ranks the model is wrapped in
+    ``DistributedDataParallel`` (a collective: every rank calls this; the
+    wrapper broadcasts rank 0's weights and buffers)."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    return TrainState(model=model, optimizer=optimizer, generator=generator)
+    generator.manual_seed(rank_seed(seed, mesh))
+    replica = None
+    if mesh is not None and mesh.distributed:
+        from torch.nn.parallel import DistributedDataParallel
+
+        # Buffers are not broadcast each step: the BatchNorm running
+        # statistics come from global sums and are equal on every rank.
+        replica = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False, process_group=mesh.group,
+        )
+    return TrainState(model=model, optimizer=optimizer, generator=generator, replica=replica)
+
+
+def global_stats(stats: LossStats, mesh: Mesh | None) -> LossStats:
+    """The batch's ``LossStats`` summed over the mesh's ranks (detached)."""
+    if mesh is None or not mesh.distributed:
+        return stats
+    total = mesh.all_reduce(torch.stack([s.detach() for s in stats]))
+    return LossStats(*total.unbind())
 
 
 def _prepare_input(inputs: torch.Tensor) -> torch.Tensor:
@@ -174,9 +219,14 @@ def _augmented_inputs(
 
 def make_train_step(
     augment_config: AugmentConfig | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable[[TrainState, Batch], tuple[TrainState, LossStats]]:
     """Train step on a batch {input (N,H,W,6) u8/f32, target (N,H,W),
-    optional valid_mask}: augment -> forward -> loss -> backward -> AdamW."""
+    optional valid_mask}: augment -> forward -> loss -> backward -> AdamW.
+    On a ``mesh`` of several ranks the batch is this rank's stripe and the
+    state comes from ``create_train_state(..., mesh=mesh)``; the returned
+    ``LossStats`` are the global batch's."""
+    distributed = mesh is not None and mesh.distributed
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, LossStats]:
         model, optimizer = state.model, state.optimizer
@@ -193,10 +243,19 @@ def make_train_step(
         snapshot = [t.clone() for t in gated]
 
         model.train()
-        disp, logvar = model(inputs, return_uncertainty=True)
+        forward = model if state.replica is None else state.replica
+        disp, logvar = forward(inputs, return_uncertainty=True)
         loss, stats = heteroscedastic_laplace_nll(
             disp[..., 0], logvar[..., 0], target, mask
         )
+        if distributed:
+            # The global masked mean: the ranks' valid counts differ (invalid
+            # pixels, padded rows), and DistributedDataParallel averages the
+            # ranks' gradients, so each rank's sum is scaled by
+            # world / global count.
+            local_nll = stats.nll_sum
+            stats = global_stats(stats, mesh)
+            loss = local_nll * (mesh.world_size / stats.valid_count.clamp(min=1.0))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         _set_learning_rate(optimizer)
@@ -275,8 +334,9 @@ def make_device_data_train_step(
     )
 
 
-def make_eval_step() -> Callable[[TrainState, Batch], LossStats]:
-    """Eval: running BN stats, no augmentation, metric sums only."""
+def make_eval_step(mesh: Mesh | None = None) -> Callable[[TrainState, Batch], LossStats]:
+    """Eval: running BN stats, no augmentation, metric sums only; on a mesh
+    of several ranks, summed over the ranks."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> LossStats:
@@ -291,7 +351,7 @@ def make_eval_step() -> Callable[[TrainState, Batch], LossStats]:
         _, stats = heteroscedastic_laplace_nll(
             disp[..., 0], logvar[..., 0], target, mask
         )
-        return stats
+        return global_stats(stats, mesh)
 
     return eval_step
 

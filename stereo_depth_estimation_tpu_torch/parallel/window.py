@@ -1,8 +1,7 @@
-"""Device-resident training data on one GPU: pinned or rotating windows.
+"""Device-resident training data: pinned or rotating windows, per rank.
 
-Counterpart of ``stereo_depth_estimation_tpu/parallel/window.py`` on one
-device. The packed training set is staged into device memory as windows of
-whole batches:
+Counterpart of ``stereo_depth_estimation_tpu/parallel/window.py``. The packed
+training set is staged into device memory as windows of whole batches:
 
 - **Pinned** (the set fits the byte budget): one window, staged once and
   reused every epoch; no host traffic after the first epoch's start.
@@ -19,6 +18,13 @@ Within a window, batches are gathered on the device by
 ``torch.randperm`` per pass from the train state's generator. That
 permutation differs from the JAX package's ``jax.random`` one; the window
 membership is the same.
+
+On a mesh of several ranks, the set is padded with wrapped rows to a
+multiple of the world size and every window divides over the ranks: rank r
+stages rows ``[r * local_n, (r + 1) * local_n)`` of each window, the rows
+JAX data shard r holds, and permutes them locally with its own generator
+into batches of ``batch_size / world`` rows. The byte budget is per device,
+so the whole plan's budget scales with the world size.
 """
 
 from __future__ import annotations
@@ -32,13 +38,15 @@ import numpy as np
 import torch
 
 from ..data.pipeline import to_device
+from .distributed import stage_rows_multihost
+from .mesh import Mesh
 from .train_step import Batch, DeviceDataTrainStep, TrainState
 
 
 @dataclass(frozen=True)
 class WindowPlan:
-    n: int                # dataset samples
-    batch_size: int
+    n: int                # dataset samples, padded to the world size
+    batch_size: int       # global batch
     window_samples: int   # samples staged per window (a multiple of batch_size)
     num_windows: int
     pinned: bool          # one window holding the whole set, staged once
@@ -54,10 +62,17 @@ def plan_windows(
     batch_size: int,
     bytes_per_sample: int,
     budget_bytes: int,
+    data_degree: int = 1,
 ) -> WindowPlan:
-    """Window geometry from the dataset size and a device byte budget:
-    pinned when one resident copy fits, otherwise the budget is split in two
-    (the current window and the one being staged behind it)."""
+    """Window geometry from the dataset size and a byte budget over all
+    ranks: pinned when one resident copy fits, otherwise the budget is split
+    in two (the current window and the one being staged behind it). The
+    batch must divide over the ``data_degree`` ranks."""
+    if batch_size % data_degree != 0:
+        raise ValueError(
+            f"batch_size={batch_size} must divide over the data axis "
+            f"({data_degree} shards) for windowed training."
+        )
     if n < batch_size:
         raise ValueError(
             f"dataset of {n} samples is smaller than batch_size={batch_size}"
@@ -100,20 +115,29 @@ class HBMWindowLoader:
         bytes_per_sample: int,
         budget_bytes: int,
         seed: int = 0,
+        mesh: Mesh | None = None,
     ) -> None:
         self._fetch = fetch
         self._device = device
         self._seed = seed
         self._n = n
-        self.plan = plan_windows(n, batch_size, bytes_per_sample, budget_bytes)
+        self._mesh = mesh if mesh is not None else Mesh(device)
+        world = self._mesh.world_size
+        # Pad the sample count to the world size with wrapped rows, so that
+        # windows divide over the ranks; the <= world-1 repeated rows shift
+        # in-window sampling odds marginally.
+        padded_n = n + (-n) % world
+        self.plan = plan_windows(padded_n, batch_size, bytes_per_sample, budget_bytes, world)
+        self.local_batch = batch_size // world
         self._pinned_window: tuple[torch.Tensor, torch.Tensor] | None = None
         if self.plan.pinned:
-            self._pinned_window = self._stage(np.arange(n))
+            self._pinned_window = self._stage(np.arange(padded_n) % n)
 
     def _stage(
         self, indices: np.ndarray, copy_stream=None, consumer_stream=None
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        host = self._fetch(indices)
+        """This rank's rows of the window ``indices``, on the device."""
+        host = stage_rows_multihost(self._fetch, indices, self._mesh)
         staged = to_device(host, self._device, copy_stream, consumer_stream)
         return staged["input"], staged["target"]
 
@@ -207,14 +231,17 @@ class HBMWindowLoader:
     ) -> Iterator[DeviceDataTrainStep]:
         """One item per train step of the epoch: the window's
         ``DeviceDataTrainStep`` over ``step_fn``, to be called with the
-        train state (``runner(state) -> step_fn(state, gathered batch)``)."""
+        train state (``runner(state) -> step_fn(state, gathered batch)``).
+        Each rank gathers ``batch_size / world`` rows a step from its rows of
+        the window."""
         for images, targets in self.epoch_windows(epoch):
-            runner = DeviceDataTrainStep(images, targets, self.plan.batch_size, step_fn)
+            runner = DeviceDataTrainStep(images, targets, self.local_batch, step_fn)
             for _ in range(self.plan.steps_per_window):
                 yield runner
             del runner, images, targets
 
 
-def default_hbm_budget_bytes(per_device_gb: float = 4.0) -> int:
-    """The device-resident byte budget of one device."""
-    return int(per_device_gb * (1 << 30))
+def default_hbm_budget_bytes(per_device_gb: float = 4.0, world_size: int = 1) -> int:
+    """The device-resident byte budget of the plan: the per-device allowance
+    times the number of ranks (each holds its share of every window)."""
+    return int(per_device_gb * (1 << 30)) * world_size

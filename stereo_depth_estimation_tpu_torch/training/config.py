@@ -2,10 +2,9 @@
 
 Counterpart of ``stereo_depth_estimation_tpu/training/config.py``: the same
 field names, flags and defaults, so a JAX command line parses here. Flags
-whose mechanism the port does not have yet (meshes, spatial sharding,
-multihost, compilation, the executable cache) are parsed all the same; the
-trainer raises on a value that would change what runs
-(``trainer.check_supported``).
+whose mechanism the port does not have yet (spatial sharding, compilation,
+the executable cache) are parsed all the same; the trainer raises on a value
+that would change what runs (``trainer.check_supported``).
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ class TrainConfig:
     augment_impl: str = "auto"  # auto|xla|pallas: auto, plain, the CUDA kernel
     input_precision: str = "uint8"  # uint8|float32
     base_channels: int = 32  # UNet width; 32 = reference spec (7.76M params)
-    mesh_devices: int = 0  # 0 = all visible devices; the port runs on one
+    mesh_devices: int = 0  # ranks, one GPU each; 0 = all visible GPUs (1 on the CPU)
     spatial_devices: int = 1
     compute_dtype: str = "bfloat16"
     packed_cache_root: str | None = None
@@ -79,7 +78,7 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
     defaults = TrainConfig()
     parser = argparse.ArgumentParser(
         description="Train the stereo disparity model on FoundationStereo "
-                    "(PyTorch, one NVIDIA GPU)."
+                    "(PyTorch, one NVIDIA GPU or several)."
     )
     add = parser.add_argument
     add("--dataset-root", type=str, default=defaults.dataset_root,
@@ -87,7 +86,8 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
     add("--height", type=int, default=defaults.height, help="Training image height.")
     add("--width", type=int, default=defaults.width, help="Training image width.")
     add("--epochs", type=int, default=defaults.epochs, help="Number of epochs.")
-    add("--batch-size", type=int, default=defaults.batch_size, help="Batch size.")
+    add("--batch-size", type=int, default=defaults.batch_size,
+        help="Global batch size, split over the ranks.")
     add("--lr", type=float, default=defaults.lr, help="Learning rate.")
     add("--weight-decay", type=float, default=defaults.weight_decay, help="Weight decay.")
     add("--lr-schedule", type=str, default=defaults.lr_schedule,
@@ -154,9 +154,10 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
     add("--base-channels", type=int, default=defaults.base_channels,
         help="UNet width multiplier (32 = reference architecture).")
     add("--mesh-devices", type=int, default=defaults.mesh_devices,
-        help="Devices to train on; the port trains on one (0 or 1).")
+        help="Data-parallel ranks on this host, one GPU each (0 = all visible "
+             "GPUs; one rank on the CPU). More than the visible GPUs raises.")
     add("--spatial-devices", type=int, default=defaults.spatial_devices,
-        help="Not ported: only 1 is accepted.")
+        help="Not ported (height sharding): only 1 is accepted.")
     add("--compute-dtype", type=str, default=defaults.compute_dtype,
         choices=("bfloat16", "float32"), help="Network compute dtype.")
     add("--packed-cache-root", type=str, default=None,
@@ -187,10 +188,17 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
         help="Write a torch.profiler trace of early training batches here.")
     add("--profile-steps", type=int, default=defaults.profile_steps,
         help="Training batches to capture when --profile-dir is set.")
-    add("--multihost", action="store_true", help="Not ported: raises.")
-    add("--coordinator-address", type=str, default=None, help="Not ported: raises.")
-    add("--num-processes", type=int, default=None, help="Not ported: raises.")
-    add("--process-id", type=int, default=None, help="Not ported: raises.")
+    add("--multihost", action="store_true",
+        help="Train across hosts: each host process starts its --mesh-devices "
+             "ranks. Give the three address flags, or none to read MASTER_ADDR, "
+             "MASTER_PORT, WORLD_SIZE and RANK from the environment.")
+    add("--coordinator-address", type=str, default=None,
+        help="host:port of the rendezvous (on process 0's host) for --multihost.")
+    add("--num-processes", type=int, default=None,
+        help="Host processes of a --multihost run.")
+    add("--process-id", type=int, default=None,
+        help="This host process's index (0 tracks and checkpoints) in a "
+             "--multihost run.")
     namespace = parser.parse_args(argv)
     values = vars(namespace)
     known = {f.name for f in fields(TrainConfig)}

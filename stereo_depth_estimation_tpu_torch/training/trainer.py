@@ -1,4 +1,5 @@
-"""Training orchestrator: the ``foundation-stereo-depth`` CLI on one GPU.
+"""Training orchestrator: the ``foundation-stereo-depth`` CLI on one GPU or
+several.
 
 Counterpart of ``stereo_depth_estimation_tpu/training/trainer.py``:
 
@@ -13,6 +14,14 @@ the MLflow file store, evaluates, saves previews and writes
 ``checkpoints/last.pt`` every epoch and ``best.pt`` on a new best val MAE,
 with the resume state. A JAX command line either runs the same training here
 or fails loudly (``check_supported``).
+
+``--mesh-devices N`` trains data-parallel on N local ranks, one GPU each;
+``--multihost`` joins ranks across hosts (``parallel/distributed.py``).
+``--batch-size`` stays the global batch. Every rank runs the same epochs on
+its stripe of each batch; only process 0 builds the packed caches, tracks
+the run, writes previews and saves checkpoints (the others get a
+``_NullRun``), and a barrier after each epoch's saves keeps the ranks
+together.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from .._device import raise_refused, resolve_cli_device, single_device_refusals
+from .._device import local_rank_count, raise_refused, resolve_cli_device, unported_refusals
 from ..data.dataset import StereoSampleLoader
 from ..data.packed_cache import PackedCache, build_packed_cache, samples_fingerprint
 from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
@@ -36,7 +45,8 @@ from ..eval.preview import save_preview_montage
 from ..models.unet import StereoUNet, count_params
 from ..ops.augment import AugmentConfig
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
-from ..parallel.mesh import pad_batch_to
+from ..parallel.distributed import MultihostBatcher, is_main_process, run_ranks
+from ..parallel.mesh import Mesh, pad_batch_to, replicate_to_mesh
 from ..parallel.train_step import (
     DeviceDataTrainStep,
     TrainState,
@@ -61,17 +71,21 @@ def set_seed(seed: int) -> None:
     np.random.seed(seed)
 
 
+def _env_rendezvous(cfg: TrainConfig) -> bool:
+    """``--multihost`` with no address flags: the torch.distributed
+    environment variables describe the group, one rank a process."""
+    return cfg.multihost and (
+        cfg.coordinator_address, cfg.num_processes, cfg.process_id) == (None, None, None)
+
+
 def check_supported(cfg: TrainConfig, device: torch.device) -> None:
     """Raise on a flag value whose mechanism the port does not have yet,
-    naming the ROADMAP item that ports it."""
-    raise_refused(single_device_refusals(
-        device, mesh_devices=cfg.mesh_devices, spatial_devices=cfg.spatial_devices,
-        aot_cache=cfg.aot_cache,
+    naming the ROADMAP item that ports it, and on more ranks than ``device``'s
+    kind has cards."""
+    local_rank_count(device, cfg.mesh_devices, env_rendezvous=_env_rendezvous(cfg))
+    raise_refused(unported_refusals(
+        spatial_devices=cfg.spatial_devices, aot_cache=cfg.aot_cache,
     ) + [
-        (cfg.multihost or cfg.coordinator_address is not None
-         or cfg.num_processes is not None or cfg.process_id is not None,
-         "--multihost and its address flags: multihost training "
-         "(ROADMAP Queue 1 item 8)"),
         (cfg.compile or cfg.compile_mode != "default" or cfg.compile_backend != "xla",
          "--compile, --compile-mode, --compile-backend: compiling the step "
          "(ROADMAP Queue 1 item 9); the port runs eagerly"),
@@ -249,10 +263,14 @@ def run_eval_epoch(eval_fn, state: TrainState, batches: Iterator[Any]) -> dict[s
 
 
 def _make_fetch(
-    cfg: TrainConfig, samples, packed_root: Path | None
+    cfg: TrainConfig, samples, packed_root: Path | None, main_process: bool = True,
 ) -> tuple[Callable[[np.ndarray], dict[str, np.ndarray]], int, PackedCache | None]:
     """The packed fast path when asked for, else the npz/PIL loader.
-    Returns (fetch, n, packed_cache_or_None)."""
+    Returns (fetch, n, packed_cache_or_None).
+
+    On several ranks only process 0 (re)builds a packed cache; the others
+    wait for its current ``meta.json``, which ``build_packed_cache`` writes
+    last, so ranks sharing a filesystem never read a cache mid-build."""
     if cfg.input_precision == "float32" and cfg.cache_root:
         raise ValueError(
             "--input-precision float32 cannot be combined with "
@@ -277,24 +295,36 @@ def _make_fetch(
         )
     fingerprint = samples_fingerprint(samples)
     meta_path = packed_root / "meta.json"
-    if meta_path.exists():
+
+    def meta_is_current() -> bool:
+        """meta.json exists and describes this split and size. A stale meta
+        a follower may see while process 0 rebuilds fails this check, and
+        the fresh one appears only after the payload is complete."""
         try:
             meta = json.loads(meta_path.read_text())
-        except json.JSONDecodeError:
-            meta = {}
-        current = meta.get("split_fingerprint") == fingerprint and (
+        except (FileNotFoundError, json.JSONDecodeError):
+            return False
+        return meta.get("split_fingerprint") == fingerprint and (
             meta.get("height"), meta.get("width")
         ) == (cfg.height, cfg.width)
-        if not current:
-            # Same counts can hide another split (train samples would leak
-            # into val) and another size would feed wrong shapes: rebuild,
-            # meta first.
-            print(
-                f"Packed cache at {packed_root} was built for a different "
-                "sample split or image size; rebuilding."
-            )
-            for name in ("meta.json", "images.bin", "disparity.bin"):
-                (packed_root / name).unlink(missing_ok=True)
+
+    if not main_process:
+        deadline = time.time() + 3600.0
+        while not meta_is_current():
+            if time.time() > deadline:
+                raise TimeoutError(f"Timed out waiting for process 0 to build {packed_root}")
+            time.sleep(0.2)
+        cache = PackedCache(packed_root)
+        return cache.gather, len(cache), cache
+    if meta_path.exists() and not meta_is_current():
+        # Same counts can hide another split (train samples would leak into
+        # val) and another size would feed wrong shapes: rebuild, meta first.
+        print(
+            f"Packed cache at {packed_root} was built for a different "
+            "sample split or image size; rebuilding."
+        )
+        for name in ("meta.json", "images.bin", "disparity.bin"):
+            (packed_root / name).unlink(missing_ok=True)
     if not meta_path.exists():
         print(f"Building packed cache at {packed_root} ...")
         build_packed_cache(
@@ -337,6 +367,35 @@ def _device_val_batches(
     return batches
 
 
+class _NullRun:
+    """Tracking sink of every rank but process 0: all ranks run the same
+    epochs, only process 0 records anything."""
+
+    run_id = "multihost-follower"
+    backend = "null"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def log_params(self, *a, **k):
+        pass
+
+    def log_metrics(self, *a, **k):
+        pass
+
+    def log_artifact(self, *a, **k):
+        pass
+
+    def log_artifacts(self, *a, **k):
+        pass
+
+    def set_tag(self, *a, **k):
+        pass
+
+
 def _warn_on_horizon_drift(
     cfg: TrainConfig, meta: dict[str, Any], carry: dict[str, Any], steps_per_epoch: int
 ) -> None:
@@ -363,15 +422,30 @@ def _warn_on_horizon_drift(
 
 
 def train(cfg: TrainConfig) -> dict[str, Any]:
-    """Run the training ``cfg`` describes. Returns the run summary: run id,
-    best epoch and val MAE, checkpoint directory, global step, each epoch's
-    metrics, how the train set was fed (``device_resident``: "pinned",
-    "rotating" or "off"), and the final ``TrainState``."""
-    set_seed(cfg.seed)
+    """Run the training ``cfg`` describes, on this process's ranks. Returns
+    the run summary of its first rank: run id, best epoch and val MAE,
+    checkpoint directory, global step, each epoch's metrics, how the train
+    set was fed (``device_resident``: "pinned", "rotating" or "off"), and,
+    unless the ranks were spawned, the final ``TrainState``."""
     device = resolve_cli_device(cfg.device)
     check_supported(cfg, device)
+    local = local_rank_count(device, cfg.mesh_devices, env_rendezvous=_env_rendezvous(cfg))
+    return run_ranks(
+        train_rank, (cfg, local == 1), device=device, local_ranks=local,
+        multihost=cfg.multihost, coordinator_address=cfg.coordinator_address,
+        num_processes=cfg.num_processes, process_id=cfg.process_id,
+    )
+
+
+def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[str, Any]:
+    """The training of one rank of ``mesh`` (``train``'s summary; the
+    ``TrainState`` only with ``keep_state``)."""
+    set_seed(cfg.seed)
+    device = mesh.device
+    main_process = is_main_process()
+    say = print if main_process else (lambda *args, **kwargs: None)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"Using 1 device: {device} ({name})")
+    say(f"Using {mesh.world_size} device(s), one rank each; rank 0 on {device} ({name})")
 
     all_samples = discover_samples(cfg.dataset_root)
     if cfg.max_samples > 0:
@@ -379,17 +453,18 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
     if len(all_samples) < 2:
         raise ValueError("Need at least two samples to create train/validation splits.")
     train_samples, val_samples = split_samples(all_samples, cfg.val_fraction, cfg.seed)
-    print(
+    say(
         f"Discovered {len(all_samples)} samples: "
         f"train={len(train_samples)}, val={len(val_samples)}"
     )
 
     packed_base = Path(cfg.packed_cache_root) if cfg.packed_cache_root else None
     train_fetch, n_train, train_cache = _make_fetch(
-        cfg, train_samples, packed_base / "train" if packed_base else None
+        cfg, train_samples, packed_base / "train" if packed_base else None, main_process
     )
     val_fetch, n_val, val_cache = (
-        _make_fetch(cfg, val_samples, packed_base / "val" if packed_base else None)
+        _make_fetch(cfg, val_samples, packed_base / "val" if packed_base else None,
+                    main_process)
         if val_samples
         else (None, 0, None)
     )
@@ -400,12 +475,13 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
 
     # Device-resident path (parallel/window.py): the packed train set pinned
     # in device memory when it fits the budget, else rotated through it in
-    # windows. Planned before the optimizer: the cosine horizon is the
-    # number of steps the run will take.
+    # windows; on several ranks each stages its rows of every window.
+    # Planned before the optimizer: the cosine horizon is the number of
+    # steps the run will take.
     windowed: HBMWindowLoader | None = None
     device_val_batches: list | None = None
     if cfg.device_resident == "on" and train_cache is None:
-        print(
+        say(
             "--device-resident on requested but unavailable "
             "(needs --packed-cache-root); falling back to streamed batches."
         )
@@ -417,13 +493,14 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
                 cfg.batch_size,
                 device,
                 bytes_per_sample=train_cache.nbytes // max(n_train, 1),
-                budget_bytes=default_hbm_budget_bytes(cfg.hbm_window_gb),
+                budget_bytes=default_hbm_budget_bytes(cfg.hbm_window_gb, mesh.world_size),
                 seed=cfg.seed,
+                mesh=mesh,
             )
         except ValueError as exc:
             if cfg.device_resident == "on":
                 raise ValueError(f"--device-resident: {exc}") from exc
-            print(f"Device-resident unavailable ({exc}); streaming.")
+            say(f"Device-resident unavailable ({exc}); streaming.")
         if windowed is not None:
             plan = windowed.plan
             mode = (
@@ -433,11 +510,14 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
                      f"{plan.window_samples} samples (next window staged "
                      "behind training)"
             )
-            print(
+            say(
                 f"Device-resident training: {train_cache.nbytes / 1e6:.0f} MB "
-                f"on {device}, {mode}, {plan.steps_per_epoch} steps/epoch."
+                f"over {mesh.world_size} device(s), {mode}, "
+                f"{plan.steps_per_epoch} steps/epoch."
             )
-            if val_cache is not None:
+            if val_cache is not None and not mesh.distributed:
+                # One device: the validation set is staged too, so an epoch
+                # makes no host traffic. Several ranks stream their stripes.
                 device_val_batches = _device_val_batches(val_cache, cfg.batch_size, device)
 
     model = StereoUNet(
@@ -447,6 +527,7 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
         device=device,
         generator=torch.Generator().manual_seed(cfg.seed),
+        bn_group=mesh.group if mesh.distributed else None,
     )
     steps_per_epoch = (
         windowed.plan.steps_per_epoch
@@ -459,7 +540,7 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
         total_steps=steps_per_epoch * cfg.epochs,
         warmup_steps=cfg.lr_warmup_steps,
     )
-    state = create_train_state(model, optimizer, seed=cfg.seed)
+    state = create_train_state(model, optimizer, seed=cfg.seed, mesh=mesh)
     num_parameters = count_params(model)
     start_epoch = 1
     if cfg.init_checkpoint:
@@ -469,43 +550,64 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
                 "resume restores the full TrainState including these weights."
             )
         load_model_variables(Path(cfg.init_checkpoint), model)
-        print(f"Initialised model weights from {cfg.init_checkpoint}.")
+        say(f"Initialised model weights from {cfg.init_checkpoint}.")
     resume_carry: dict[str, Any] = {}
     if cfg.resume:
         state, meta = load_train_state(Path(cfg.resume), state)
         start_epoch = int(meta.get("epoch") or 0) + 1
         resume_carry = dict((meta.get("metrics") or {}).get("resume_carry", {}))
-        if cfg.lr_schedule != "constant":
+        if cfg.lr_schedule != "constant" and main_process:
             _warn_on_horizon_drift(cfg, meta, resume_carry, steps_per_epoch)
-        print(f"Resumed from {cfg.resume} at epoch {start_epoch - 1}.")
+        if mesh.rank > 0:
+            # The checkpoint holds rank 0's generator; the other ranks draw
+            # a stream of their own again, from (seed, rank, step).
+            state.generator.manual_seed(int(np.random.SeedSequence(
+                (cfg.seed, mesh.rank, state.step)).generate_state(1)[0]))
+        say(f"Resumed from {cfg.resume} at epoch {start_epoch - 1}.")
+    if cfg.init_checkpoint or cfg.resume:
+        state = replicate_to_mesh(state, mesh)
 
-    train_step = make_train_step(augment_config_from(cfg))
-    eval_step = make_eval_step()
+    train_step = make_train_step(augment_config_from(cfg), mesh)
+    eval_step = make_eval_step(mesh)
     predict = make_predict_fn(model)
-    put = cuda_put(device, lambda batch: pad_batch_to(batch, cfg.batch_size))
+    if mesh.distributed:
+        # Each rank fetches only its stripe of every global batch, padded
+        # to the static batch size and the world size with flagged rows.
+        train_fetch = MultihostBatcher(train_fetch, mesh, pad_to=cfg.batch_size)
+        if val_fetch is not None:
+            val_fetch = MultihostBatcher(val_fetch, mesh, pad_to=cfg.batch_size)
+        put = cuda_put(device)
+    else:
+        put = cuda_put(device, lambda batch: pad_batch_to(batch, cfg.batch_size))
 
-    run = TrackingRun(cfg.mlflow_tracking_uri, cfg.mlflow_experiment, cfg.run_name)
+    run: Any = (
+        TrackingRun(cfg.mlflow_tracking_uri, cfg.mlflow_experiment, cfg.run_name)
+        if main_process
+        else _NullRun()
+    )
     summary: dict[str, Any] = {}
     with run:
         run_id = run.run_id
         output_dir = Path(cfg.output_dir).expanduser().resolve() / run_id
         checkpoints_dir = output_dir / "checkpoints"
         preview_root = output_dir / "mlflow_previews"
-        checkpoints_dir.mkdir(parents=True, exist_ok=True)
-        preview_root.mkdir(parents=True, exist_ok=True)
-        config_path = output_dir / "config.json"
-        config_path.write_text(json.dumps(asdict(cfg), indent=2), encoding="utf-8")
-        run.log_params(
-            tracking_params(cfg, len(train_samples), len(val_samples), num_parameters)
-        )
-        run.log_artifact(config_path, artifact_path="config")
-        if preview_count > 0:
-            print(f"Previews: logging {preview_count} fixed {preview_split} samples each epoch.")
+        if main_process:
+            checkpoints_dir.mkdir(parents=True, exist_ok=True)
+            preview_root.mkdir(parents=True, exist_ok=True)
+            config_path = output_dir / "config.json"
+            config_path.write_text(json.dumps(asdict(cfg), indent=2), encoding="utf-8")
+            run.log_params(
+                tracking_params(cfg, len(train_samples), len(val_samples), num_parameters)
+            )
+            run.log_artifact(config_path, artifact_path="config")
+            if preview_count > 0:
+                print(f"Previews: logging {preview_count} fixed {preview_split} "
+                      "samples each epoch.")
 
         best_val_mae = float(resume_carry.get("best_val_mae", float("inf")))
         best_epoch = int(resume_carry.get("best_epoch", -1))
         global_step = int(resume_carry.get("global_step", 0))
-        profiler = StepProfiler(cfg.profile_dir, cfg.profile_steps)
+        profiler = StepProfiler(cfg.profile_dir if main_process else None, cfg.profile_steps)
         history = []
 
         for epoch in range(start_epoch, cfg.epochs + 1):
@@ -531,7 +633,7 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
                 run=run,
                 global_step=global_step,
                 log_every_batches=cfg.log_every_batches,
-                progress_desc=f"epoch {epoch}",
+                progress_desc=f"epoch {epoch}" if main_process else None,
                 profiler=profiler,
             )
             profiler.stop()  # flush even if the epoch was shorter than asked
@@ -564,38 +666,45 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
             run.log_metrics(epoch_metrics, step=epoch)
             history.append({"epoch": epoch, "global_step": global_step, **epoch_metrics})
 
-            if preview_count > 0:
+            if main_process and preview_count > 0:
                 previews_dir = preview_root / f"epoch_{epoch:04d}"
                 log_epoch_previews(
                     predict, cfg, preview_source[:preview_count], previews_dir, device
                 )
                 run.log_artifacts(previews_dir, artifact_path=f"previews/epoch_{epoch:04d}")
 
+            # Every rank sees the same global metrics, so all agree on the
+            # best epoch; process 0 alone writes.
             if val_metrics["mae"] < best_val_mae:
                 best_val_mae = val_metrics["mae"]
                 best_epoch = epoch
-                save_checkpoint(
-                    checkpoints_dir, "best", state,
-                    epoch=epoch, config=asdict(cfg), metrics=epoch_metrics,
-                )
+                if main_process:
+                    save_checkpoint(
+                        checkpoints_dir, "best", state,
+                        epoch=epoch, config=asdict(cfg), metrics=epoch_metrics,
+                    )
             # `last` carries resume continuity (global step, global best so
             # far, the schedule horizon this run computed); saved after the
             # best check so the carry reflects this epoch.
-            save_checkpoint(
-                checkpoints_dir, "last", state,
-                epoch=epoch, config=asdict(cfg),
-                metrics={
-                    **epoch_metrics,
-                    "resume_carry": {
-                        "global_step": global_step,
-                        "best_val_mae": best_val_mae,
-                        "best_epoch": best_epoch,
-                        "schedule_total_steps": steps_per_epoch * cfg.epochs,
+            if main_process:
+                save_checkpoint(
+                    checkpoints_dir, "last", state,
+                    epoch=epoch, config=asdict(cfg),
+                    metrics={
+                        **epoch_metrics,
+                        "resume_carry": {
+                            "global_step": global_step,
+                            "best_val_mae": best_val_mae,
+                            "best_epoch": best_epoch,
+                            "schedule_total_steps": steps_per_epoch * cfg.epochs,
+                        },
                     },
-                },
-            )
+                )
+            mesh.barrier()  # no rank runs ahead of process 0's saves
 
-            if val_fetch is not None:
+            if not main_process:
+                pass
+            elif val_fetch is not None:
                 print(
                     f"Epoch {epoch}/{cfg.epochs}: "
                     f"train_mae={train_metrics['mae']:.4f}, "
@@ -612,12 +721,12 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
 
         run.set_tag("best_epoch", best_epoch)
         run.set_tag("best_val_mae", best_val_mae)
-        if checkpoints_dir.exists():
+        if main_process and checkpoints_dir.exists():
             run.log_artifacts(checkpoints_dir, artifact_path="checkpoints")
 
-        print(f"Run: {run_id} (tracking backend: {run.backend})")
-        print(f"Best validation MAE: {best_val_mae:.4f} at epoch {best_epoch}")
-        print(f"Checkpoints saved to: {checkpoints_dir}")
+        say(f"Run: {run_id} (tracking backend: {run.backend})")
+        say(f"Best validation MAE: {best_val_mae:.4f} at epoch {best_epoch}")
+        say(f"Checkpoints saved to: {checkpoints_dir}")
         summary = {
             "run_id": run_id,
             "best_epoch": best_epoch,
@@ -630,8 +739,9 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
                 else "pinned" if windowed.plan.pinned
                 else "rotating"
             ),
-            "state": state,
         }
+        if keep_state:
+            summary["state"] = state
     return summary
 
 

@@ -1,4 +1,4 @@
-"""Rules the PyTorch port keeps: no JAX anywhere in it or in chip_smoke.py,
+"""Rules the PyTorch port keeps: no JAX anywhere in it or in its scripts,
 no quiet CPU fallback for CUDA, and a kernel launcher that takes CUDA
 tensors only."""
 
@@ -18,7 +18,8 @@ from stereo_depth_estimation_tpu_torch.ops import augment_cuda
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_depth_estimation_tpu_torch"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "stereo_depth_estimation_tpu"}
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / f for f in ("chip_smoke.py", "augment_timing.py")]
+SCRIPTS = ["chip_smoke", "augment_timing", "rank_drift"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / f"{name}.py" for name in SCRIPTS]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -37,8 +38,8 @@ def test_no_jax_imports(path) -> None:
 
 
 def _import_all_with_blocked(blocked: list[str]) -> None:
-    """Import every module of the port, chip_smoke.py and augment_timing.py
-    in a fresh interpreter where importing any of ``blocked`` raises."""
+    """Import every module of the port and its scripts in a fresh
+    interpreter where importing any of ``blocked`` raises."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
@@ -48,7 +49,7 @@ def _import_all_with_blocked(blocked: list[str]) -> None:
         f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None  # any import of it raises\n"
         "import importlib\n"
-        f"for m in {modules + ['chip_smoke', 'augment_timing']!r}:\n"
+        f"for m in {modules + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
         "print('imported', len(sys.modules))\n"
     )
@@ -68,6 +69,36 @@ def test_port_imports_with_cv2_blocked() -> None:
     """OpenCV is needed only by the camera, GUI and headless-PNG paths, and
     is imported inside the functions that use it."""
     _import_all_with_blocked(["cv2"])
+
+
+# What the port may call of torch.distributed: set-up, queries, and the two
+# collectives gloo runs on CUDA tensors, so that one code path serves NCCL,
+# gloo on CUDA and gloo on the CPU.
+DIST_ALLOWED = {
+    "all_reduce", "broadcast", "init_process_group", "destroy_process_group",
+    "is_available", "is_initialized", "get_backend", "get_rank", "get_world_size",
+    "group",
+}
+
+
+def test_collectives_are_all_reduce_and_broadcast_only() -> None:
+    used = {}
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        aliases = {"dist"} if any(
+            isinstance(n, ast.Import) and any(a.name == "torch.distributed" and a.asname == "dist"
+                                              for a in n.names)
+            for n in ast.walk(tree)) else set()
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Attribute):
+                continue
+            base = node.value
+            if (isinstance(base, ast.Name) and base.id in aliases) or (
+                    isinstance(base, ast.Attribute) and base.attr == "distributed"
+                    and isinstance(base.value, ast.Name) and base.value.id == "torch"):
+                used.setdefault(node.attr, set()).add(path.name)
+    assert {"all_reduce", "broadcast", "init_process_group"} <= used.keys()
+    assert used.keys() <= DIST_ALLOWED, {k: v for k, v in used.items() if k not in DIST_ALLOWED}
 
 
 def test_asking_for_cuda_without_it_raises() -> None:

@@ -293,7 +293,8 @@ def _cli_run(root: Path, out: Path, cli: str, *argv: str) -> dict:
 
 
 @pytest.mark.parametrize("cli,argv", [
-    ("evaluate", ["--mesh-devices", "2"]),
+    # Two ranks run since the data-parallel slice; height sharding does not.
+    ("evaluate", ["--mesh-devices", "2", "--spatial-devices", "2"]),
     ("evaluate", ["--spatial-devices", "2"]),
     ("evaluate", ["--aot-cache", "some/dir"]),
     ("predict", ["--aot-cache", "some/dir"]),

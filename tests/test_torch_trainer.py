@@ -190,9 +190,18 @@ def test_device_resident_training_on_the_packed_cache(root, tmp_path, window_gb)
     assert len(previews) == 2 * 2
 
 
+# The multi-rank flags run since the data-parallel slice
+# (tests/test_torch_distributed.py); here they come with a flag that is still
+# refused, which must raise before any rank starts or joins a rendezvous.
+_JOIN = ["--multihost", "--coordinator-address", "localhost:1234", "--num-processes", "2"]
+
+
 @pytest.mark.parametrize("argv", [
-    ["--mesh-devices", "2"], ["--spatial-devices", "2"], ["--multihost"],
-    ["--coordinator-address", "localhost:1234"], ["--process-id", "0"], ["--compile"],
+    ["--mesh-devices", "2", "--spatial-devices", "2"], ["--spatial-devices", "2"],
+    ["--multihost", "--aot-cache-multihost"],
+    ["--coordinator-address", "localhost:1234", *_JOIN[:1], *_JOIN[3:], "--process-id", "1",
+     "--compile"],
+    ["--process-id", "1", *_JOIN, "--aot-cache", "some/dir"], ["--compile"],
     ["--compile-mode", "max-autotune"], ["--compile-backend", "inductor"],
     ["--aot-cache", "some/dir"], ["--aot-cache-multihost"],
 ], ids=lambda a: a[0].lstrip("-"))
