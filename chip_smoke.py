@@ -29,7 +29,17 @@ plain PyTorch version on the card, and drives the port's two paths:
   ranks' state before it, then run the trainer CLI with ``--multihost
   --num-processes 2`` on the trainer phase's dataset for one epoch, each
   rank running every kernel; then the script itself joins a one-rank NCCL
-  group through the CLI's default backend.
+  group through the CLI's default backend;
+- the compiled train step (the trainer's ``--compile``: Inductor, mode
+  default, ``fullgraph=True``) at the main path's setting, with the four
+  kernels inside the graph as custom ops: its cold compile, its step time
+  beside the eager one, its profile, one step held against the eager model
+  from the same weights on the same batch; then the trainer CLI with
+  ``--compile --aot-cache <dir>`` at that shape, in this process (which
+  fills the cache) and in a child process with empty Inductor and Triton
+  caches of its own, which must load every graph from the blob. Inductor's
+  and Triton's caches point at a fresh directory under ``build/`` for the
+  whole run, so the first compile is cold, and are removed at the end.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
@@ -81,13 +91,16 @@ from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     pointwise_chain_plain,
 )
 from stereo_depth_estimation_tpu_torch.ops.codec import disparity_encode_np
+from stereo_depth_estimation_tpu_torch.ops.augment_cuda import augment_stereo_batch_fused
 from stereo_depth_estimation_tpu_torch.ops.loss import (
     LossStats,
     accumulate_stats,
+    heteroscedastic_laplace_nll,
     metrics_from_stats,
 )
 from stereo_depth_estimation_tpu_torch.ops.remap import Rectifier
 from stereo_depth_estimation_tpu_torch.parallel import (
+    CompileOptions,
     TrainState,
     create_train_state,
     make_adamw,
@@ -191,6 +204,18 @@ GRAY_MEAN_OPS_PER_BYTE = 7
 # A K3 that routes to the wrong window position is off by 65-74% of the
 # norm of every first-level leaf.
 GRAD_RTOL, GRAD_FLOOR = 0.05, 1e-2
+
+# Compiled step (Inductor, the trainer's --compile default) vs the eager
+# model, one step from the same weights on the same augmented bf16 batch at
+# the main path's shape: the summed LossStats within COMPILED_STATS_RTOL
+# relative, each gradient leaf within COMPILED_GRAD_RTOL of its norm
+# (floored as GRAD_FLOOR says). Inductor fuses BatchNorm, ReLU and the
+# elementwise passes into generated kernels that round to bf16 at other
+# places and sum in another order than PyTorch's eager kernels. Each limit
+# is a few times the most an H100 read at this point (PERF.md section 6:
+# 1.6e-5 and 0.80%); K3 routed to the wrong window position inside the graph
+# reads 44x the gradient's (``compile_fault.py``).
+COMPILED_STATS_RTOL, COMPILED_GRAD_RTOL = 1e-4, 0.02
 
 # Kernel vs plain: f32 outputs within 1e-5 (FMA contraction, the kernel's
 # approximate ex2/lg2/rcp and expf ulps; near 0, the min channel of hsv->rgb
@@ -686,7 +711,7 @@ def max_err(got, want) -> tuple[float, float]:
 
 def serving_counts(k2: int) -> dict[str, int]:
     """The launch counts of a serving run: ``k2`` forward pools, nothing else."""
-    return {"GM": 0, "K1": 0, "K2": k2, "K3": 0, "dy_copies": 0}
+    return {"GM": 0, "K1": 0, "K2": k2, "K3": 0}
 
 
 def check_evaluate(data: Path, ckpt: Path, *argv: str) -> tuple[dict, float, int]:
@@ -1422,13 +1447,11 @@ def reset_counts() -> None:
     pointwise_chain_cuda.launches = 0
     pool.maxpool2x2_fwd_cuda.launches = 0
     pool.maxpool2x2_bwd_cuda.launches = 0
-    pool.MaxPool2x2.dy_copies = 0
 
 
 def counts() -> dict[str, int]:
     return {"GM": gray_means_cuda.launches, "K1": pointwise_chain_cuda.launches,
-            "K2": pool.maxpool2x2_fwd_cuda.launches, "K3": pool.maxpool2x2_bwd_cuda.launches,
-            "dy_copies": pool.MaxPool2x2.dy_copies}
+            "K2": pool.maxpool2x2_fwd_cuda.launches, "K3": pool.maxpool2x2_bwd_cuda.launches}
 
 
 def phase_train(state, runner) -> tuple[float, list[LossStats]]:
@@ -1452,6 +1475,9 @@ KERNEL_GROUPS = (  # first match names a device kernel's group
     ("K1 augment", ("augment_kernel",)),
     ("K2 max pool fwd", ("maxpool2x2_fwd",)),
     ("K3 max pool bwd", ("maxpool2x2_bwd",)),
+    # Inductor's generated kernels (the compiled step): BatchNorm, ReLU and
+    # the elementwise passes fused; before "batchnorm", which their names hold.
+    ("inductor triton", ("triton_",)),
     ("batchnorm", ("batch_norm",)),
     ("conv", ("conv", "gemm", "xmma", "dgrad", "wgrad", "cudnn", "cutlass", "sm90_")),
     ("max pool", ("max_pool",)),
@@ -1486,26 +1512,212 @@ def profile_kernels(run, reps: int) -> tuple[list[tuple[float, int, str]], float
     return rows, window_us
 
 
-def phase_profile(runner, state) -> None:
+def phase_profile(runner, state, label: str = "profile") -> None:
     """Device time by kernel over 2 steps (torch.profiler), grouped, and the
-    device's busy share of the profiled window."""
+    device's busy share of the profiled window; lines start with ``label``."""
     rows, window_us = profile_kernels(lambda: runner(state), 2)
     total = sum(r[0] for r in rows)
     if total <= 0:
-        print("profile: torch.profiler recorded no device kernel time")
+        print(f"{label}: torch.profiler recorded no device kernel time")
         return
-    print(f"profile (2 steps, profiler on): kernels {total / 2e3:.2f} ms/step of a "
+    print(f"{label} (2 steps, profiler on): kernels {total / 2e3:.2f} ms/step of a "
           f"{window_us / 2e3:.2f} ms/step window, device busy {100 * total / window_us:.1f}%")
     groups: dict[str, float] = {}
     for dev, _, key in rows:
         name = next((g for g, subs in KERNEL_GROUPS if any(s in key for s in subs)), "other")
         groups[name] = groups.get(name, 0.0) + dev
-    print("profile: by group " + ", ".join(
+    print(f"{label}: by group " + ", ".join(
         f"{g} {t / 2e3:.2f} ms ({100 * t / total:.1f}%)"
         for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
     for dev, count, key in rows[:10]:
-        print(f"profile:   {dev / 2e3:8.3f} ms/step  {100 * dev / total:5.1f}%  "
+        print(f"{label}:   {dev / 2e3:8.3f} ms/step  {100 * dev / total:5.1f}%  "
               f"x{count // 2:<4d} {key[:80]}")
+
+
+def graph_count() -> int:
+    """Dynamo's count of the graphs this process compiled."""
+    from torch._dynamo.utils import counters
+
+    return int(counters["stats"]["unique_graphs"])
+
+
+def compiled_main_path(images: torch.Tensor, targets: torch.Tensor):
+    """The main path's state and runner with the model compiled as the
+    trainer's ``--compile`` compiles it (Inductor, mode default, fullgraph),
+    after its first step: that step's seconds (the compile) and the graphs it
+    made."""
+    model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0,
+                               compile=CompileOptions())
+    runner = make_device_data_train_step(images, targets, BATCH, AugmentConfig())
+    graphs = graph_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(state)
+    torch.cuda.synchronize()
+    return state, runner, time.perf_counter() - t0, graph_count() - graphs
+
+
+def compiled_vs_eager_step(state: TrainState, runner) -> dict:
+    """One step's LossStats and gradients through the compiled model and
+    through an eager model with its weights, on one augmented batch of the
+    main path (bf16, so the compiled graph is the one already made): the
+    largest relative LossStats gap, the largest leaf gap (largest_leaf_gap)
+    and its leaf."""
+    batch = runner.gather(state)
+    inputs = augment_stereo_batch_fused(state.generator, batch["input"], AugmentConfig(),
+                                        out_dtype=torch.bfloat16)
+    target, mask = train_step._targets_and_mask(batch)
+    eager = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
+    eager.load_state_dict(state.model.state_dict())
+    out = {}
+    for name, forward, model in (("compiled", state.compiled, state.model),
+                                 ("eager", eager, eager)):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        disp, logvar = forward(inputs, return_uncertainty=True)
+        loss, stats = heteroscedastic_laplace_nll(disp[..., 0], logvar[..., 0], target, mask)
+        loss.backward()
+        out[name] = ([float(s) for s in stats],
+                     {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+    (stats_c, grads_c), (stats_e, grads_e) = out["compiled"], out["eager"]
+    gap, leaf = largest_leaf_gap(grads_e, grads_c)
+    stats_gap = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(stats_c, stats_e))
+    return {"stats_gap": stats_gap, "grad_gap": gap, "leaf": leaf, "nll_sum": stats_c[0],
+            "eager_nll_sum": stats_e[0]}
+
+
+def phase_compiled(images: torch.Tensor, targets: torch.Tensor, eager_ms: float) -> dict:
+    """The compiled main path at full width: the cold compile, 5 steps after
+    warm-up beside the eager figure, the kernels' launches inside the graph,
+    graphs and recompiles, the profile, and one step against eager."""
+    torch.cuda.reset_peak_memory_stats()
+    state, runner, cold_s, graphs = compiled_main_path(images, targets)
+    check(graphs == 1, f"the compiled model made {graphs} graphs, expected 1 (fullgraph)")
+    before = graph_count()
+    ms_step, stats = phase_train(state, runner)
+    launches = counts()
+    recompiles = graph_count() - before
+    expected = {"GM": STEPS, "K1": STEPS, "K2": 4 * STEPS, "K3": 4 * STEPS}
+    check(launches == expected, f"compiled step launches {launches} in {STEPS} steps, "
+          f"expected {expected}: a kernel ran outside the graph or was decomposed")
+    check(recompiles == 0, f"the compiled step recompiled {recompiles} times")
+    losses = [metrics_from_stats(s)["loss"] for s in stats]
+    check(all(math.isfinite(x) for x in losses), f"compiled step: non-finite losses {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train compiled: StereoUNet base 32 bf16, batch {BATCH}, {HW[0]}x{HW[1]}, torch."
+          f"compile (Inductor, mode default, fullgraph): first call {cold_s:.1f} s (the cold "
+          f"compile, fresh Inductor and Triton caches); {STEPS} steps after {1 + WARMUP} "
+          f"warm-up: {ms_step:.2f} ms/step, {BATCH * 1e3 / ms_step:.1f} pairs/s (eager "
+          f"\"train:\" {eager_ms:.2f} ms/step in this call: {eager_ms / ms_step:.3f}x); graphs "
+          f"{graphs}, recompiles {recompiles}; kernel launches gray means {launches['GM']} K1 "
+          f"{launches['K1']} K2 {launches['K2']} K3 {launches['K3']} (custom ops inside the "
+          f"graph); losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+          f"{peak_gib:.2f} GiB")
+    phase_profile(runner, state, "profile compiled")
+    gaps = compiled_vs_eager_step(state, runner)
+    check(graph_count() == before, "the compiled-vs-eager step compiled another graph")
+    check(gaps["stats_gap"] <= COMPILED_STATS_RTOL,
+          f"compiled vs eager: LossStats differ by {gaps['stats_gap']:.3g}")
+    check(gaps["grad_gap"] <= COMPILED_GRAD_RTOL,
+          f"compiled vs eager: gradient of {gaps['leaf']} differs by {gaps['grad_gap']:.3g} "
+          "of its norm")
+    print(f"train compiled: one step from the same weights on the same augmented batch, "
+          f"compiled vs eager: LossStats within {gaps['stats_gap']:.3g} (tol "
+          f"{COMPILED_STATS_RTOL:g}; nll_sum {gaps['nll_sum']:.6g} vs "
+          f"{gaps['eager_nll_sum']:.6g}); gradients within {gaps['grad_gap']:.3g} of their "
+          f"norm (largest in {gaps['leaf']}; tol {COMPILED_GRAD_RTOL:g}) ok")
+    return {"cold_s": cold_s, "ms_step": ms_step, "launches": launches, "peak_gib": peak_gib,
+            **gaps}
+
+
+def compile_cache_argv(tmp: Path, name: str) -> list[str]:
+    """The trainer CLI with --compile and the compile cache at the main
+    path's shape (base 32, bf16, batch 128, 240x320) on the trainer phase's
+    dataset: one step an epoch (pinned), one validation batch, previews."""
+    return trainer_argv(tmp, "--epochs", "1", "--batch-size", str(BATCH), "--compile",
+                        "--aot-cache", str(tmp / "aot"),
+                        "--mlflow-tracking-uri", str(tmp / f"{name}_mlruns"),
+                        "--output-dir", str(tmp / f"{name}_outputs"))
+
+
+def compile_cache_child(tmp_dir: str) -> None:
+    """The second process of the compile-cache check (``python -c``, from
+    the repository root, with empty Inductor and Triton caches of its own):
+    the trainer CLI as the first ran it; prints one RESULT line."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() runs the first
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary, run_counts, seconds = counted(trainer.main,
+                                           compile_cache_argv(Path(tmp_dir), "second"))
+    print("RESULT " + json.dumps({"cache": summary["compile_cache"], "counts": run_counts,
+                                  "seconds": seconds, "wall": time.perf_counter() - t0,
+                                  "epochs": summary["epochs"]}), flush=True)
+
+
+def phase_compile_cache(tmp: Path, caches: Path) -> dict:
+    """The trainer CLI with ``--compile --aot-cache <dir>`` in this process
+    (Inductor's caches warm from the compiled main path: it fills the blob),
+    then in a child process whose Inductor and Triton caches are empty: it
+    must load every graph from the blob (source ``aot-cache``, FX-graph cache
+    hits, no miss)."""
+    torch._dynamo.reset()  # the trainer traces and looks its graphs up itself
+    first, first_counts, first_s = counted(trainer.main, compile_cache_argv(tmp, "first"))
+    steps = 1  # 144 train samples pinned at batch 128
+    expected = {"GM": steps, "K1": steps, "K2": 4 * (steps + 1 + 1), "K3": 4 * steps}
+    check(first_counts == expected, f"compiled trainer launches {first_counts}, expected "
+          f"{expected}")
+    check(all(first["compile_cache"][k]["source"] == "compiled"
+              for k in ("train step", "eval step")),
+          f"first process compile cache {first['compile_cache']}")
+    check(len(list((tmp / "aot").glob("aot_*.bin"))) == 1, "no compile-cache blob written")
+    env = dict(os.environ)
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor_child"),
+                     ("TRITON_CACHE_DIR", "triton_child")):
+        (caches / sub).mkdir()
+        env[var] = str(caches / sub)
+    t0 = time.perf_counter()
+    [(line, _)] = run_process_farm(
+        "import sys, chip_smoke; chip_smoke.compile_cache_child(sys.argv[1])",
+        lambda i: [str(tmp)], num_processes=1, timeout=900,
+        cwd=str(Path(__file__).resolve().parent), env=env)
+    child_s = time.perf_counter() - t0
+    second = json.loads(line)
+    check(second["counts"] == expected, f"second process launches {second['counts']}")
+    for label, report in second["cache"].items():
+        check(report["source"] == "aot-cache" and report["fxgraph_cache_hit"] > 0
+              and report["fxgraph_cache_miss"] == 0,
+              f"second process {label}: {report} (expected every graph from the blob)")
+    check(set(second["cache"]) == {"train step", "eval step"}, f"{second['cache']}")
+    mae = [run["epochs"][0]["train_mae"] for run in (first, second)]
+    check(all(math.isfinite(m) for m in mae), f"compiled trainer train_mae {mae}")
+    blob = next((tmp / "aot").glob("aot_*.bin"))
+
+    def report(cache: dict) -> str:
+        return "; ".join(f"{label} {r['seconds']:.1f} s ({r['source']}, FX-graph cache hits "
+                         f"{r['fxgraph_cache_hit']}, misses {r['fxgraph_cache_miss']})"
+                         for label, r in cache.items())
+
+    print(f"compile cache: trainer CLI --compile --aot-cache <dir>, base 32 bf16, batch "
+          f"{BATCH}, {HW[0]}x{HW[1]}, 1 epoch: this process (Inductor's caches warm from the "
+          f"compiled main path; Dynamo reset) {report(first['compile_cache'])}, {first_s:.1f} "
+          f"s in all, "
+          f"wrote {blob.stat().st_size / 1e6:.1f} MB; a second process with empty Inductor "
+          f"and Triton caches {report(second['cache'])}, its trainer {second['seconds']:.1f} s, "
+          f"{child_s:.1f} s with its start; launches {second['counts']} in each ok")
+    return {"first": first["compile_cache"], "second": second["cache"], "child_s": child_s}
+
+
+def fresh_compile_caches() -> Path:
+    """Inductor's and Triton's caches in a new directory under build/ for
+    this run (a cold compile is cold); the caller removes it."""
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="compile_caches_", dir=_build.BUILD_DIR.parent))
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        (root / sub).mkdir()
+        os.environ[var] = str(root / sub)
+    return root
 
 
 def main() -> int:
@@ -1525,6 +1737,15 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}; cudnn.benchmark on for the main path only")
 
+    caches = fresh_compile_caches()
+    try:
+        return run_all(caches)
+    finally:
+        shutil.rmtree(caches, ignore_errors=True)
+
+
+def run_all(caches: Path) -> int:
+    """Every phase (``main`` has checked for CUDA and set the flags)."""
     marks = [("start", time.perf_counter())]
 
     def mark(name: str) -> None:
@@ -1574,8 +1795,7 @@ def main() -> int:
           f"{PAYLOAD} on device, {STEPS} steps after {WARMUP} warm-up: {ms_step:.2f} ms/step, "
           f"{BATCH * 1e3 / ms_step:.1f} pairs/s, kernel launches gray means "
           f"{main_counts['GM']} K1 {main_counts['K1']} K2 "
-          f"{main_counts['K2']} K3 {main_counts['K3']}, incoming pool gradients copied to "
-          f"channels_last {main_counts['dy_copies']} times, losses "
+          f"{main_counts['K2']} K3 {main_counts['K3']}, losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (before the pools ran on "
           f"K2/K3: {BEFORE_POOL_KERNELS})")
@@ -1590,7 +1810,7 @@ def main() -> int:
     disp, logvar = predict(batch)
     torch.cuda.synchronize()
     predict_counts = counts()
-    check(predict_counts == {"GM": 0, "K1": 0, "K2": 4, "K3": 0, "dy_copies": 0},
+    check(predict_counts == {"GM": 0, "K1": 0, "K2": 4, "K3": 0},
           f"predict launches {predict_counts}, expected K2 4")
     check(tuple(disp.shape) == tuple(logvar.shape) == (BATCH, *HW), "predict shapes")
     check(bool(torch.isfinite(disp).all() and torch.isfinite(logvar).all()), "predict not finite")
@@ -1599,9 +1819,13 @@ def main() -> int:
     print(f"predict: batch {BATCH} {HW[0]}x{HW[1]} bf16 -> disparity/logvar "
           f"{tuple(disp.shape)}, {ms_predict:.2f} ms, disparity in "
           f"[{float(disp.min()):.4f}, {float(disp.max()):.4f}], K2 launches 4 ok")
-    del state, runner, model, predict, images, targets, batch, disp, logvar
-    torch.backends.cudnn.benchmark = False
+    del state, runner, model, predict, batch, disp, logvar
     mark("predict")
+    # The same path compiled, as the trainer's --compile runs it.
+    compiled = phase_compiled(images, targets, ms_step)
+    del images, targets
+    torch.backends.cudnn.benchmark = False
+    mark(f"compiled main path ({compiled['cold_s']:.1f} s the cold compile)")
 
     # The kernel alone at the main path's shape and config (bf16 out).
     cfg = AugmentConfig()
@@ -1697,6 +1921,8 @@ def main() -> int:
         mark("serving")
         multi_rank = phase_multi_rank(Path(tmp))
         mark("multi-rank")
+        cache = phase_compile_cache(Path(tmp), caches)
+        mark("compile cache")
     # K2 in float32, as serving runs it, at batch 30 and batch 1.
     serving_pool = {f"batch{n}": phase_pool_timing(SERVE_POOL_SHAPES[n], torch.float32,
                                                    backward=False)["K2"]
@@ -1704,7 +1930,11 @@ def main() -> int:
     mark("K2 f32 timing")
     print("phases: " + ", ".join(
         f"{name} {t - before:.1f} s" for (_, before), (name, t) in zip(marks, marks[1:]))
-        + f"; total {marks[-1][1] - marks[0][1]:.1f} s after the imports")
+        + f"; total {marks[-1][1] - marks[0][1]:.1f} s after the imports; compile: cold "
+        f"{compiled['cold_s']:.1f} s, trainer CLI in this process "
+        + ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in cache["first"].items())
+        + ", in a second process from the blob "
+        + ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in cache["second"].items()))
 
     # K2/K3: sums over the main path's four pool shapes (per-shape figures
     # on the "pool timing:" lines); the library call is F.max_pool2d with
@@ -1722,6 +1952,8 @@ def main() -> int:
             **pool_times[name],
             "multi_rank_launches": multi_rank[name],
         })
+    for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3")):
+        kernel["compiled_launches"] = compiled["launches"][name]
     # K2 also runs every serving forward (float32): its launches there and
     # its times at the serving shapes, summed over the four levels.
     kernels[-2]["serving_launches"] = serving_k2

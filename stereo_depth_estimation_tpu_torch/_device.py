@@ -65,15 +65,16 @@ def local_rank_count(
 def unported_refusals(
     *, spatial_devices: int = 1, aot_cache: str = "off"
 ) -> list[tuple[bool, str]]:
-    """(refused, what) for the JAX CLIs' spatial and executable-cache flags,
-    whose mechanisms the port does not have."""
+    """(refused, what) for the JAX CLIs' spatial flag and, for the serving
+    CLIs, whose forwards are not compiled yet, a compile-cache directory."""
     return [
         (spatial_devices != 1,
          f"--spatial-devices {spatial_devices}: height sharding (ROADMAP Queue 1 "
          "item 11)"),
         (aot_cache not in ("auto", "off"),
-         f"--aot-cache {aot_cache}: the executable cache (ROADMAP Queue 1 item 9); "
-         "an eager port has none, so only 'auto' and 'off' are accepted"),
+         f"--aot-cache {aot_cache}: compiling the serving forwards and their compile "
+         "cache (ROADMAP Queue 1 item 13); they run eagerly, so only 'auto' and "
+         "'off' are accepted"),
     ]
 
 

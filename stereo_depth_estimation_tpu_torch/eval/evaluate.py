@@ -77,8 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spatial-devices", type=int, default=1,
                         help="Height sharding: not ported, only 1 is taken.")
     parser.add_argument("--aot-cache", type=str, default="auto",
-                        help="The JAX CLI's executable cache; the eager port "
-                             "has none and takes only 'auto' or 'off'.")
+                        help="The JAX CLI's executable cache; this forward runs "
+                             "eagerly (compiled serving is ROADMAP Queue 1 item "
+                             "13), so only 'auto' or 'off' are taken.")
     return parser
 
 

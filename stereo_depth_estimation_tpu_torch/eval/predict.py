@@ -97,8 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "npz (focal scaled calib->model width, "
                              "baseline from P1/P2 or T).")
     parser.add_argument("--aot-cache", type=str, default="auto",
-                        help="The JAX CLI's executable cache; the eager port "
-                             "has none and takes only 'auto' or 'off'.")
+                        help="The JAX CLI's executable cache; this forward runs "
+                             "eagerly (compiled serving is ROADMAP Queue 1 item "
+                             "13), so only 'auto' or 'off' are taken.")
     parser.add_argument("--device", type=str, default="auto",
                         help="auto (= cuda), cuda or cpu.")
     return parser

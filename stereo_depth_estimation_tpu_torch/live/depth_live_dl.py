@@ -129,8 +129,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--ema-alpha", type=float, default=0.0,
                         help="Optional temporal smoothing in [0,1]; 0 disables.")
     parser.add_argument("--aot-cache", type=str, default="auto",
-                        help="The JAX CLI's executable cache; the eager port "
-                             "has none and takes only 'auto' or 'off'.")
+                        help="The JAX CLI's executable cache; this forward runs "
+                             "eagerly (compiled serving is ROADMAP Queue 1 item "
+                             "13), so only 'auto' or 'off' are taken.")
     return parser.parse_args(argv)
 
 

@@ -8,10 +8,11 @@ a reduction kernel that reads the batch once (the XLA reduce of the JAX
 package's ``_pack_factors``). Factor sampling and the noise + clamp epilogue
 stay plain PyTorch, as they are plain XLA in the JAX package.
 
-``pointwise_chain`` and ``gray_means`` take the plain versions
-(``pointwise_chain_plain``, ``gray_means_plain``) for a tensor on the CPU,
-and launch the kernels for a CUDA tensor; there is no fallback from a kernel
-to its plain version. ``pointwise_chain_cuda`` and ``gray_means_cuda`` launch
+``pointwise_chain`` and ``gray_means`` are ``torch.library`` custom ops
+(``sde_torch::``) with fakes: their CPU implementations are the plain
+versions (``pointwise_chain_plain``, ``gray_means_plain``), their CUDA
+implementations launch the kernels; there is no fallback from a kernel to
+its plain version. ``pointwise_chain_cuda`` and ``gray_means_cuda`` launch
 their kernel or raise, and count their launches in ``.launches``.
 """
 
@@ -230,6 +231,11 @@ pointwise_chain_cuda = PointwiseChainKernel()
 gray_means_cuda = GrayMeansKernel()
 
 
+# The custom ops: the plain version is the CPU implementation, the kernel
+# the CUDA one, with fakes so that a traced program keeps them as calls.
+
+
+@torch.library.custom_op("sde_torch::pointwise_chain", mutates_args=(), device_types="cpu")
 def pointwise_chain(
     images_u8: torch.Tensor,
     factors_packed: torch.Tensor,
@@ -237,18 +243,35 @@ def pointwise_chain(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """(N, H, W, 6) uint8 + (N, 16) factors -> (N, H, W, 6) ``out_dtype``: the
-    plain version for a CPU tensor, the CUDA kernel for any other."""
-    if images_u8.device.type == "cpu":
-        return pointwise_chain_plain(images_u8, factors_packed, blur_k, out_dtype)
+    plain version for a CPU tensor, the CUDA kernel for a CUDA one."""
+    return pointwise_chain_plain(images_u8, factors_packed, blur_k, out_dtype)
+
+
+@pointwise_chain.register_kernel("cuda")
+def _(images_u8, factors_packed, blur_k=0, out_dtype=torch.float32):
     return pointwise_chain_cuda(images_u8, factors_packed, blur_k, out_dtype)
 
 
+@pointwise_chain.register_fake
+def _(images_u8, factors_packed, blur_k=0, out_dtype=torch.float32):
+    return images_u8.new_empty(images_u8.shape, dtype=out_dtype)
+
+
+@torch.library.custom_op("sde_torch::gray_means", mutates_args=(), device_types="cpu")
 def gray_means(images_u8: torch.Tensor, brightness: torch.Tensor) -> torch.Tensor:
     """(N, H, W, 6) uint8 + (2N,) brightness -> (2N,) gray means: the plain
-    version for a CPU tensor, the CUDA kernel for any other."""
-    if images_u8.device.type == "cpu":
-        return gray_means_plain(images_u8, brightness)
+    version for a CPU tensor, the CUDA kernel for a CUDA one."""
+    return gray_means_plain(images_u8, brightness)
+
+
+@gray_means.register_kernel("cuda")
+def _(images_u8, brightness):
     return gray_means_cuda(images_u8, brightness)
+
+
+@gray_means.register_fake
+def _(images_u8, brightness):
+    return brightness.new_empty((2 * images_u8.shape[0],), dtype=torch.float32)
 
 
 def augment_stereo_batch_fused(

@@ -13,11 +13,14 @@ holds a NaN pools to NaN and has index 3 (every ``>=`` against NaN is false).
 - ``maxpool2x2_fwd_cuda`` / ``maxpool2x2_bwd_cuda``: the kernels K2 and K3;
   they take CUDA tensors only, raise on anything else, and count their
   launches in ``.launches``.
-- ``maxpool2x2_fwd`` / ``maxpool2x2_bwd``: the plain version for a CPU
-  tensor, the kernel for any other; no fallback from the kernel.
-- ``MaxPool2x2``: the autograd Function (forward K2, saving idx; backward
-  K3) on the model's NCHW channels_last tensors, and ``max_pool_2x2`` its
-  functional form, which the StereoUNet calls at each of its four levels.
+- ``maxpool2x2_fwd`` / ``maxpool2x2_bwd``: the ``torch.library`` custom ops
+  ``sde_torch::maxpool2x2_fwd`` / ``_bwd``, with the plain version as the
+  CPU implementation and the kernel as the CUDA one (no fallback from the
+  kernel), fakes for tracing, and the forward's autograd (saving idx, the
+  backward op for the gradient). ``torch.compile`` keeps them in its graph
+  as they are.
+- ``max_pool_2x2``: the op on the model's NCHW channels_last tensors, which
+  the StereoUNet calls at each of its four levels.
 """
 
 from __future__ import annotations
@@ -157,56 +160,65 @@ maxpool2x2_fwd_cuda = MaxPoolForwardKernel()
 maxpool2x2_bwd_cuda = MaxPoolBackwardKernel()
 
 
+# The custom ops: opaque to torch.compile, which keeps them in its graph as
+# calls (never decomposed into the plain versions), with fakes for tracing.
+# The CPU implementation is the plain version; the CUDA one is the kernel.
+
+
+@torch.library.custom_op("sde_torch::maxpool2x2_fwd", mutates_args=(), device_types="cpu")
 def maxpool2x2_fwd(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """NHWC forward: the plain version for a CPU tensor, K2 for any other."""
-    if x.device.type == "cpu":
-        return maxpool2x2_fwd_plain(x)
+    """NHWC forward: the plain version for a CPU tensor, K2 for a CUDA one."""
+    return maxpool2x2_fwd_plain(x)
+
+
+@maxpool2x2_fwd.register_kernel("cuda")
+def _(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return maxpool2x2_fwd_cuda(x)
 
 
+@maxpool2x2_fwd.register_fake
+def _(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    n, h, w, c = x.shape
+    y = x.new_empty((n, h // 2, w // 2, c))
+    return y, x.new_empty(y.shape, dtype=torch.uint8)
+
+
+@torch.library.custom_op("sde_torch::maxpool2x2_bwd", mutates_args=(), device_types="cpu")
 def maxpool2x2_bwd(dy: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """NHWC backward: the plain version for a CPU tensor, K3 for any other."""
-    if dy.device.type == "cpu":
-        return maxpool2x2_bwd_plain(dy, idx)
+    """NHWC backward: the plain version for a CPU tensor, K3 for a CUDA one."""
+    return maxpool2x2_bwd_plain(dy, idx)
+
+
+@maxpool2x2_bwd.register_kernel("cuda")
+def _(dy: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return maxpool2x2_bwd_cuda(dy, idx)
 
 
-def _nhwc(t: torch.Tensor) -> torch.Tensor:
-    """The NHWC view of an NCHW tensor (no copy when it is channels_last)."""
-    return t.permute(0, 2, 3, 1)
+@maxpool2x2_bwd.register_fake
+def _(dy: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    n, h2, w2, c = dy.shape
+    return dy.new_empty((n, 2 * h2, 2 * w2, c))
 
 
-class MaxPool2x2(torch.autograd.Function):
-    """2x2/stride-2 max pool of an NCHW tensor: forward K2 (saving the uint8
-    index), backward K3; the plain versions on the CPU. Output and gradient
-    are channels_last views of the kernels' NHWC results, in the input's
-    dtype (autocast does not touch the Function).
+def _save_index(ctx, inputs, output) -> None:
+    ctx.save_for_backward(output[1])
 
-    ``dy_copies`` counts backward calls whose incoming gradient was not
-    channels_last and had to be copied before K3."""
 
-    dy_copies = 0
+def _pool_backward(ctx, dy: torch.Tensor, _didx) -> torch.Tensor:
+    (idx,) = ctx.saved_tensors
+    return maxpool2x2_bwd(dy.contiguous(), idx)
 
-    @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        xv = _nhwc(x)
-        if not xv.is_contiguous():
-            xv = xv.contiguous()
-        y, idx = maxpool2x2_fwd(xv)
-        ctx.save_for_backward(idx)
-        return y.permute(0, 3, 1, 2)
 
-    @staticmethod
-    def backward(ctx, dy: torch.Tensor) -> torch.Tensor:
-        (idx,) = ctx.saved_tensors
-        dyv = _nhwc(dy)
-        if not dyv.is_contiguous():
-            MaxPool2x2.dy_copies += 1
-            dyv = dyv.contiguous()
-        return maxpool2x2_bwd(dyv, idx).permute(0, 3, 1, 2)
+maxpool2x2_fwd.register_autograd(_pool_backward, setup_context=_save_index)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool of an (N, C, H, W) tensor, H and W even; the
-    name and function of the JAX package's ``models/unet.py::max_pool_2x2``."""
-    return MaxPool2x2.apply(x)
+    name and function of the JAX package's ``models/unet.py::max_pool_2x2``.
+
+    The op runs on the NHWC view, so a channels_last input is not copied;
+    the result and the gradient are channels_last views of the kernels'
+    NHWC outputs, in the input's dtype (autocast does not touch the op). An
+    incoming gradient that is not channels_last is copied before K3."""
+    y, _ = maxpool2x2_fwd(x.permute(0, 2, 3, 1).contiguous())
+    return y.permute(0, 3, 1, 2)

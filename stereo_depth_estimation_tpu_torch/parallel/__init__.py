@@ -1,5 +1,7 @@
 from .train_step import (
+    CompileOptions,
     TrainState,
+    compile_model,
     create_train_state,
     make_adamw,
     make_device_data_train_step,
@@ -10,7 +12,9 @@ from .train_step import (
 )
 
 __all__ = [
+    "CompileOptions",
     "TrainState",
+    "compile_model",
     "create_train_state",
     "make_adamw",
     "make_device_data_train_step",

@@ -21,6 +21,15 @@ gradient; the returned ``LossStats`` are global sums; and the no-op gate
 tests the global valid count, so the ranks' weights never part. Each rank
 draws its augmentation from its own generator, seeded from (seed, rank). On
 one rank none of this runs: no wrapper, no collective.
+
+Compiled (``create_train_state(..., compile=CompileOptions(...))``, the
+trainer's ``--compile``): the train and eval steps run the model through
+``torch.compile`` (``compile_model``), one graph for the training forward
+and, through AOTAutograd, its backward, and one for eval. The four kernels
+are ``torch.library`` custom ops, so they stay in the graph as calls. The
+augmentation (its randomness comes from the state's generator), the loss,
+the no-op gate and AdamW stay eager. On several ranks
+``DistributedDataParallel`` wraps the compiled model.
 """
 
 from __future__ import annotations
@@ -50,6 +59,28 @@ class TrainState:
     step: int = 0  # steps taken, zero-valid batches included
     # On several ranks: DistributedDataParallel(model), which the step runs.
     replica: nn.Module | None = None
+    # Compiled: torch.compile(model), which the steps run (inside the replica
+    # on several ranks). Checkpoints read ``model``, whose keys are plain.
+    compiled: nn.Module | None = None
+
+
+@dataclass(frozen=True)
+class CompileOptions:
+    """The trainer's ``--compile-mode`` and ``--compile-backend``. Backend
+    ``"xla"``, the JAX package's default, names Inductor here: the compiler
+    that stands where XLA stands there. Any other name goes to
+    ``torch.compile`` as it is, which raises on one it does not know."""
+
+    mode: str = "default"  # default|reduce-overhead|max-autotune
+    backend: str = "xla"
+
+
+def compile_model(module: nn.Module, options: CompileOptions) -> nn.Module:
+    """``torch.compile(module, fullgraph=True)`` with ``options``: one graph,
+    or a failure. A failure to compile raises at the first call; nothing
+    falls back to eager."""
+    backend = "inductor" if options.backend == "xla" else options.backend
+    return torch.compile(module, mode=options.mode, backend=backend, fullgraph=True)
 
 
 def make_lr_schedule(
@@ -137,14 +168,16 @@ def rank_seed(seed: int, mesh: Mesh | None) -> int:
 
 def create_train_state(
     model: StereoUNet, optimizer: torch.optim.AdamW, seed: int = 0,
-    mesh: Mesh | None = None,
+    mesh: Mesh | None = None, compile: CompileOptions | None = None,
 ) -> TrainState:
     """The train state; on a mesh of several ranks the model is wrapped in
     ``DistributedDataParallel`` (a collective: every rank calls this; the
-    wrapper broadcasts rank 0's weights and buffers)."""
+    wrapper broadcasts rank 0's weights and buffers). With ``compile`` the
+    steps run ``compile_model(model)``; the replica wraps that."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(rank_seed(seed, mesh))
+    compiled = None if compile is None else compile_model(model, compile)
     replica = None
     if mesh is not None and mesh.distributed:
         from torch.nn.parallel import DistributedDataParallel
@@ -152,10 +185,20 @@ def create_train_state(
         # Buffers are not broadcast each step: the BatchNorm running
         # statistics come from global sums and are equal on every rank.
         replica = DistributedDataParallel(
-            model, device_ids=[device.index] if device.type == "cuda" else None,
+            model if compiled is None else compiled,
+            device_ids=[device.index] if device.type == "cuda" else None,
             broadcast_buffers=False, process_group=mesh.group,
         )
-    return TrainState(model=model, optimizer=optimizer, generator=generator, replica=replica)
+    return TrainState(model=model, optimizer=optimizer, generator=generator,
+                      replica=replica, compiled=compiled)
+
+
+def _forward_module(state: TrainState, train: bool) -> nn.Module:
+    """What a step runs the model through: the replica (training on several
+    ranks), else the compiled model, else the model."""
+    if train and state.replica is not None:
+        return state.replica
+    return state.model if state.compiled is None else state.compiled
 
 
 def global_stats(stats: LossStats, mesh: Mesh | None) -> LossStats:
@@ -243,8 +286,7 @@ def make_train_step(
         snapshot = [t.clone() for t in gated]
 
         model.train()
-        forward = model if state.replica is None else state.replica
-        disp, logvar = forward(inputs, return_uncertainty=True)
+        disp, logvar = _forward_module(state, train=True)(inputs, return_uncertainty=True)
         loss, stats = heteroscedastic_laplace_nll(
             disp[..., 0], logvar[..., 0], target, mask
         )
@@ -344,7 +386,8 @@ def make_eval_step(mesh: Mesh | None = None) -> Callable[[TrainState, Batch], Lo
         was_training = model.training
         model.eval()
         try:
-            disp, logvar = model(_prepare_input(batch["input"]), return_uncertainty=True)
+            disp, logvar = _forward_module(state, train=False)(
+                _prepare_input(batch["input"]), return_uncertainty=True)
         finally:
             model.train(was_training)
         target, mask = _targets_and_mask(batch)

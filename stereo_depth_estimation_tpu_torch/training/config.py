@@ -1,10 +1,10 @@
 """Training configuration: the JAX trainer's dataclass, flags and defaults.
 
 Counterpart of ``stereo_depth_estimation_tpu/training/config.py``: the same
-field names, flags and defaults, so a JAX command line parses here. Flags
-whose mechanism the port does not have yet (spatial sharding, compilation,
-the executable cache) are parsed all the same; the trainer raises on a value
-that would change what runs (``trainer.check_supported``).
+field names, flags and defaults, so a JAX command line parses here. A flag
+whose mechanism the port does not have yet (spatial sharding) is parsed all
+the same; the trainer raises on a value that would change what runs
+(``trainer.check_supported``).
 """
 
 from __future__ import annotations
@@ -117,12 +117,17 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
     add("--require-cache", action="store_true",
         help="Fail if any requested sample is missing from --cache-root.")
     add("--compile", action=argparse.BooleanOptionalAction, default=defaults.compile,
-        help="Not ported: the port runs eagerly; --compile raises.")
+        help="Run the model through torch.compile (one graph for the training "
+             "forward and backward, one for eval; the CUDA kernels stay in it as "
+             "custom ops). Off: eager.")
     add("--compile-mode", type=str, default=defaults.compile_mode,
         choices=("default", "reduce-overhead", "max-autotune"),
-        help="Not ported: only 'default' is accepted.")
+        help="torch.compile mode with --compile.")
     add("--compile-backend", type=str, default=defaults.compile_backend,
-        help="Not ported: only 'xla' (the default) is accepted.")
+        help="torch.compile backend with --compile: 'xla' (the JAX package's "
+             "default) is Inductor, the compiler in XLA's place; any other name "
+             "(aot_eager, eager, ...) goes to torch.compile, which raises on an "
+             "unknown one.")
     add("--augment", action=argparse.BooleanOptionalAction, default=defaults.augment,
         help="Enable asymmetric RGB augmentations independently on left/right.")
     add("--brightness-jitter", type=float, default=defaults.brightness_jitter,
@@ -170,10 +175,13 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
         dest="hbm_window_gb",
         help="Device memory budget (GB) for device-resident windows.")
     add("--aot-cache", type=str, default=defaults.aot_cache, dest="aot_cache",
-        help="'auto' or 'off' are accepted (an eager port has no executable "
-             "to cache); a directory raises.")
+        help="Compile cache of --compile across processes: 'auto' = "
+             "<output-dir>/.aot_cache, 'off', or a directory. The first run saves "
+             "Inductor's compile artifacts there and later runs of the same "
+             "setting load them instead of compiling; each rank keys its own.")
     add("--aot-cache-multihost", action="store_true",
-        dest="aot_cache_multihost", help="Not ported: raises.")
+        dest="aot_cache_multihost",
+        help="Use --aot-cache under --multihost too (off by default there).")
     add("--resume", type=str, default=None,
         help="Checkpoint (.pt) to resume training from.")
     add("--init-checkpoint", type=str, default=None, dest="init_checkpoint",

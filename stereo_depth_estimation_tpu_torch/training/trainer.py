@@ -45,9 +45,11 @@ from ..eval.preview import save_preview_montage
 from ..models.unet import StereoUNet, count_params
 from ..ops.augment import AugmentConfig
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
+from ..parallel.aot_cache import CompileCache, cache_digest, resolve_aot_dir
 from ..parallel.distributed import MultihostBatcher, is_main_process, run_ranks
 from ..parallel.mesh import Mesh, pad_batch_to, replicate_to_mesh
 from ..parallel.train_step import (
+    CompileOptions,
     DeviceDataTrainStep,
     TrainState,
     create_train_state,
@@ -83,15 +85,31 @@ def check_supported(cfg: TrainConfig, device: torch.device) -> None:
     naming the ROADMAP item that ports it, and on more ranks than ``device``'s
     kind has cards."""
     local_rank_count(device, cfg.mesh_devices, env_rendezvous=_env_rendezvous(cfg))
-    raise_refused(unported_refusals(
-        spatial_devices=cfg.spatial_devices, aot_cache=cfg.aot_cache,
-    ) + [
-        (cfg.compile or cfg.compile_mode != "default" or cfg.compile_backend != "xla",
-         "--compile, --compile-mode, --compile-backend: compiling the step "
-         "(ROADMAP Queue 1 item 9); the port runs eagerly"),
-        (cfg.aot_cache_multihost,
-         "--aot-cache-multihost: the executable cache (ROADMAP Queue 1 item 9)"),
-    ])
+    raise_refused(unported_refusals(spatial_devices=cfg.spatial_devices))
+
+
+def compile_options_from(cfg: TrainConfig) -> CompileOptions | None:
+    """``--compile``'s options, or None for the eager step."""
+    if not cfg.compile:
+        return None
+    return CompileOptions(mode=cfg.compile_mode, backend=cfg.compile_backend)
+
+
+def compile_cache_from(cfg: TrainConfig, mesh: Mesh, verbose: bool) -> CompileCache | None:
+    """The compile cache of a ``--compile`` run (``parallel/aot_cache.py``),
+    or None: off with ``--aot-cache off``, and under ``--multihost`` unless
+    ``--aot-cache-multihost``. Local ``--mesh-devices`` ranks use it (the
+    JAX package runs them in one process); each rank keys its own blob."""
+    aot_dir = resolve_aot_dir(cfg.aot_cache, cfg.output_dir)
+    if not cfg.compile or aot_dir is None or (cfg.multihost and not cfg.aot_cache_multihost):
+        return None
+    setting = {
+        "compile_mode": cfg.compile_mode, "compile_backend": cfg.compile_backend,
+        "base_channels": cfg.base_channels, "compute_dtype": cfg.compute_dtype,
+        "batch_size": cfg.batch_size, "height": cfg.height, "width": cfg.width,
+        "ranks": mesh.world_size, "rank": mesh.rank,
+    }
+    return CompileCache(aot_dir, cache_digest(setting, mesh.device), verbose=verbose)
 
 
 def augment_config_from(cfg: TrainConfig) -> AugmentConfig | None:
@@ -133,7 +151,7 @@ def tracking_params(
         "uncertainty_head": True,
         "loss": "heteroscedastic_l1_nll",
         "mlflow_train_log_every_batches": cfg.log_every_batches,
-        "compile": False,  # eager PyTorch
+        "compile": cfg.compile,  # torch.compile of the model, else eager
         "compute_dtype": cfg.compute_dtype,
         "mesh_devices": cfg.mesh_devices,
         "spatial_devices": cfg.spatial_devices,
@@ -540,7 +558,8 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
         total_steps=steps_per_epoch * cfg.epochs,
         warmup_steps=cfg.lr_warmup_steps,
     )
-    state = create_train_state(model, optimizer, seed=cfg.seed, mesh=mesh)
+    state = create_train_state(model, optimizer, seed=cfg.seed, mesh=mesh,
+                               compile=compile_options_from(cfg))
     num_parameters = count_params(model)
     start_epoch = 1
     if cfg.init_checkpoint:
@@ -569,7 +588,15 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
 
     train_step = make_train_step(augment_config_from(cfg), mesh)
     eval_step = make_eval_step(mesh)
-    predict = make_predict_fn(model)
+    compile_cache = compile_cache_from(cfg, mesh, verbose=main_process)
+    if compile_cache is not None:
+        # Repeat runs of the same setting load Inductor's artifacts before
+        # the first compile; after each epoch the steps' first calls report
+        # their sources and the artifacts are saved (once, when any compiled).
+        compile_cache.load()
+        train_step = compile_cache.wrap(train_step, "train step")
+        eval_step = compile_cache.wrap(eval_step, "eval step")
+    predict = make_predict_fn(model)  # previews stay eager: a few pairs an epoch
     if mesh.distributed:
         # Each rank fetches only its stripe of every global batch, padded
         # to the static batch size and the world size with flagged rows.
@@ -665,6 +692,8 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
                 )
             run.log_metrics(epoch_metrics, step=epoch)
             history.append({"epoch": epoch, "global_step": global_step, **epoch_metrics})
+            if compile_cache is not None:
+                compile_cache.finish()
 
             if main_process and preview_count > 0:
                 previews_dir = preview_root / f"epoch_{epoch:04d}"
@@ -739,6 +768,7 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
                 else "pinned" if windowed.plan.pinned
                 else "rotating"
             ),
+            "compile_cache": {} if compile_cache is None else compile_cache.reports,
         }
         if keep_state:
             summary["state"] = state

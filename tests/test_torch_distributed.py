@@ -55,7 +55,7 @@ BASE, HW = 4, (32, 48)
 LR, WD = 1e-3, 1e-4
 RTOL = 1e-5
 LEAF_RTOL = 1e-4  # one parameter's gradient (measured up to 1.9e-5)
-FARM_TIMEOUT = 120.0
+FARM_TIMEOUT = 240.0  # the step farm also traces a compiled step
 CONSECUTIVE_STEPS = 3
 
 # One child of a two-rank farm: joins the gloo group, runs every scenario of
@@ -118,6 +118,23 @@ _STEP_CHILD = textwrap.dedent("""
             "stats": [float(s) for s in stats],
             "grads": {n: p.grad.clone() for n, p in model.named_parameters()}})
     out["consecutive_weights"] = {k: v.clone() for k, v in model.state_dict().items()}
+    # The "unequal" step compiled (aot_eager: DistributedDataParallel wraps
+    # the compiled model, whose BatchNorm all-reduces Dynamo traces).
+    from torch._dynamo.utils import counters
+    model = StereoUNet(base_channels=4, device=cpu, bn_group=mesh.group)
+    model.load_state_dict(init, strict=False)
+    state = P.create_train_state(model, P.make_adamw(model.parameters(), 1e-3, 1e-4), 0, mesh,
+                                 compile=P.CompileOptions(backend="aot_eager"))
+    batch = shard_batch_to_mesh({"input": data["unequal:input"],
+                                 "target": data["unequal:target"]}, mesh)
+    graphs = counters["stats"]["unique_graphs"]
+    state, stats = P.make_train_step(None, mesh)(state, batch)
+    out["compiled"] = {
+        "stats": [float(s) for s in stats],
+        "weights": {k: v.clone() for k, v in model.state_dict().items()},
+        "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+        "graphs": counters["stats"]["unique_graphs"] - graphs,
+    }
     x = torch.from_numpy(data["bn_x"])
     w = torch.from_numpy(data["bn_w"])
     stripe = slice(rank * 4, rank * 4 + 4)
@@ -238,6 +255,23 @@ def _assert_step_matches(two_stats, two_grads, two_weights, state, stats) -> Non
             assert bool(((have - want).abs() <= tol).all()), key
         else:
             assert torch.equal(have, want), key
+
+
+def test_compiled_two_rank_step_equals_the_eager_two_rank_step(farm) -> None:
+    """The two ranks' "unequal" step with the model compiled (aot_eager,
+    fullgraph: one graph, the cross-rank BatchNorm's all-reduces inside it)
+    equals their eager step within 1e-6, and the ranks stay equal."""
+    ranks, _, _ = farm
+    for r in ranks:
+        got, want = r["compiled"], r["unequal"]
+        assert got["graphs"] == 1
+        np.testing.assert_allclose(got["stats"], want["stats"], rtol=1e-6)
+        for key, g in want["grads"].items():
+            assert float((got["grads"][key] - g).norm()) <= 1e-6 * float(g.norm()), key
+        for key, w in want["weights"].items():
+            np.testing.assert_allclose(got["weights"][key].numpy(), w.numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=key)
+    assert ranks[0]["compiled"]["stats"] == ranks[1]["compiled"]["stats"]
 
 
 def test_consecutive_two_rank_steps_each_equal_one_rank_step_from_their_state(farm) -> None:
@@ -609,6 +643,28 @@ def test_mesh_devices_two_trains_like_one_rank(tmp_path) -> None:
             np.testing.assert_allclose(a[key], b[key], rtol=1e-4, err_msg=key)
     weights = torch.load(Path(two["checkpoints_dir"]) / "last.pt", weights_only=False)
     assert weights["epoch"] == 2
+
+
+def test_mesh_devices_two_compiled_trains_like_one_eager_rank(tmp_path) -> None:
+    """``--mesh-devices 2 --compile --compile-backend aot_eager``: each
+    spawned rank runs the compiled model inside its replica and trains what
+    one eager rank trains on the same global batches."""
+    write_dataset(tmp_path / "data", per_scene=6)
+    flags = ["--dataset-root", str(tmp_path / "data"), "--height", str(HW[0]), "--width",
+             str(HW[1]), "--epochs", "1", "--batch-size", "4", "--val-fraction", "0.25",
+             "--device", "cpu", "--compute-dtype", "float32", "--base-channels", str(BASE),
+             "--num-workers", "0", "--no-augment", "--preview-samples", "0",
+             "--log-every-batches", "2", "--mlflow-tracking-uri", str(tmp_path / "runs")]
+    two = trainer.main(flags + ["--mesh-devices", "2", "--compile", "--compile-backend",
+                                "aot_eager", "--aot-cache", "off",
+                                "--output-dir", str(tmp_path / "two")])
+    one = trainer.main(flags + ["--mesh-devices", "1", "--output-dir", str(tmp_path / "one")])
+    assert two["global_step"] == one["global_step"] == 3
+    for a, b in zip(two["epochs"], one["epochs"]):
+        for key in ("train_nll", "train_mae", "val_mae", "val_nll", "val_sigma"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-4, err_msg=key)
+    last = torch.load(Path(two["checkpoints_dir"]) / "last.pt", weights_only=False)
+    assert not any("_orig_mod" in k for k in last["model_state_dict"])
 
 
 @pytest.fixture(scope="module")

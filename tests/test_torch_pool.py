@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from stereo_depth_estimation_tpu.models.unet import max_pool_2x2 as jax_max_pool_2x2
 from stereo_depth_estimation_tpu_torch.models import StereoUNet
@@ -105,9 +106,10 @@ def test_plain_equals_max_pool_2x2_and_its_grad(shape, dtype) -> None:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_autograd_function_equals_plain_backward(dtype) -> None:
-    """MaxPool2x2 on an NCHW channels_last tensor: its output is the plain
-    forward as a channels_last view, and autograd's gradient is the plain
-    backward of the incoming gradient, channels_last or not."""
+    """max_pool_2x2 (the custom op and its autograd) on an NCHW channels_last
+    tensor: its output is the plain forward as a channels_last view, and
+    autograd's gradient is the plain backward of the incoming gradient,
+    channels_last or not."""
     x = _tie_rich((2, 8, 12, 16), seed=3)
     xt = _to_torch(x, dtype).permute(0, 3, 1, 2).requires_grad_(True)
     assert xt.is_contiguous(memory_format=torch.channels_last)
@@ -118,17 +120,14 @@ def test_autograd_function_equals_plain_backward(dtype) -> None:
     assert torch.equal(y.permute(0, 2, 3, 1), ref_y)
 
     dy = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 16, 4, 6))).to(dtype)
-    before = pool.MaxPool2x2.dy_copies
-    (grad,) = torch.autograd.grad(y, xt, dy)  # NCHW-contiguous dy: copied once
-    assert pool.MaxPool2x2.dy_copies == before + 1
+    (grad,) = torch.autograd.grad(y, xt, dy)  # NCHW-contiguous dy: copied before K3
     assert grad.dtype == dtype and grad.is_contiguous(memory_format=torch.channels_last)
     expected = pool.maxpool2x2_bwd_plain(dy.permute(0, 2, 3, 1).contiguous(), ref_idx)
     assert torch.equal(grad.permute(0, 2, 3, 1), expected)
 
     y = pool.max_pool_2x2(xt)
     dy_cl = dy.contiguous(memory_format=torch.channels_last)
-    (grad_cl,) = torch.autograd.grad(y, xt, dy_cl)
-    assert pool.MaxPool2x2.dy_copies == before + 1  # channels_last dy: no copy
+    (grad_cl,) = torch.autograd.grad(y, xt, dy_cl)  # channels_last dy: taken as it is
     assert torch.equal(grad_cl, grad)
 
     with torch.autocast("cpu", dtype=torch.bfloat16):
@@ -166,22 +165,33 @@ def test_kernels_refuse_cpu_tensors_and_bad_inputs() -> None:
     assert pool.maxpool2x2_fwd_cuda.launches == fwd_before
 
 
-def test_model_pools_through_max_pool_2x2(monkeypatch) -> None:
-    """The StereoUNet's four pools are calls of ops.pool.max_pool_2x2, at
-    the four levels' shapes, and never of F.max_pool2d."""
-    seen = []
-    real = pool.MaxPool2x2.apply
+class _SdeOps(TorchDispatchMode):
+    """Records every call of an ``sde_torch::`` op: (name, first input's shape)."""
 
-    def spy(x):
-        seen.append(tuple(x.shape))
-        return real(x)
+    def __init__(self) -> None:
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "sde_torch":
+            self.seen.append((func._schema.name, tuple(args[0].shape)))
+        return func(*args, **(kwargs or {}))
+
+
+def test_model_pools_through_max_pool_2x2(monkeypatch) -> None:
+    """The StereoUNet's four pools are calls of the op sde_torch::maxpool2x2_fwd
+    at the four levels' shapes (NHWC), its backward four calls of
+    sde_torch::maxpool2x2_bwd, and F.max_pool2d is never called."""
 
     def forbidden(*args, **kwargs):
         raise AssertionError("F.max_pool2d was called")
 
-    monkeypatch.setattr(pool.MaxPool2x2, "apply", spy)
     monkeypatch.setattr(torch.nn.functional, "max_pool2d", forbidden)
     model = StereoUNet(base_channels=4, device="cpu")
-    disp = model(torch.zeros((1, 32, 48, 6)))
-    disp.sum().backward()
-    assert seen == [(1, 4, 32, 48), (1, 8, 16, 24), (1, 16, 8, 12), (1, 32, 4, 6)]
+    with _SdeOps() as ops:
+        disp = model(torch.zeros((1, 32, 48, 6)))
+        disp.sum().backward()
+    levels = [(1, 32, 48, 4), (1, 16, 24, 8), (1, 8, 12, 16), (1, 4, 6, 32)]
+    assert ops.seen[:4] == [("sde_torch::maxpool2x2_fwd", s) for s in levels]
+    pooled = [(n, h // 2, w // 2, c) for n, h, w, c in reversed(levels)]
+    assert ops.seen[4:] == [("sde_torch::maxpool2x2_bwd", s) for s in pooled]

@@ -18,7 +18,7 @@ from stereo_depth_estimation_tpu_torch.ops import augment_cuda
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_depth_estimation_tpu_torch"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "stereo_depth_estimation_tpu"}
-SCRIPTS = ["chip_smoke", "augment_timing", "rank_drift"]
+SCRIPTS = ["chip_smoke", "augment_timing", "rank_drift", "compile_fault"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / f"{name}.py" for name in SCRIPTS]
 
 
@@ -35,6 +35,42 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path) -> None:
     assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_the_compile_cache_is_a_port_module() -> None:
+    assert PORT / "parallel" / "aot_cache.py" in PORT_FILES
+
+
+def _dotted(node: ast.AST) -> str:
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+    return ".".join(reversed(parts))
+
+
+def test_a_compile_failure_is_never_an_eager_run() -> None:
+    """No module of the port or script sets Dynamo's config (its
+    ``suppress_errors`` turns a failed compile into an eager run), and no
+    ``try`` that catches holds a call of ``torch.compile``, ``compile_model``
+    or the compiled forward, so a compile failure raises."""
+    compiling = {"torch.compile", "compile_model", "_forward_module"}
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        assert "suppress_errors" not in path.read_text(), path.name
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+                for target in targets:
+                    assert "_dynamo.config" not in _dotted(target), (path.name, node.lineno)
+            if isinstance(node, ast.Call) and _dotted(node.func).endswith("config.patch"):
+                assert "_dynamo" not in _dotted(node.func), (path.name, node.lineno)
+            if isinstance(node, ast.Try) and node.handlers:
+                for inner in (n for stmt in node.body for n in ast.walk(stmt)):
+                    if isinstance(inner, ast.Call):
+                        assert _dotted(inner.func) not in compiling, (path.name, inner.lineno)
 
 
 def _import_all_with_blocked(blocked: list[str]) -> None:

@@ -31,6 +31,8 @@ from stereo_depth_estimation_tpu.training.trainer import train as jax_train
 from stereo_depth_estimation_tpu_torch.models import StereoUNet
 from stereo_depth_estimation_tpu_torch.models.compat import state_dict_from_jax
 from stereo_depth_estimation_tpu_torch.ops.loss import LossStats
+from stereo_depth_estimation_tpu_torch.parallel import train_step as P
+from stereo_depth_estimation_tpu_torch.parallel.mesh import Mesh
 from stereo_depth_estimation_tpu_torch.parallel.train_step import make_predict_fn
 from stereo_depth_estimation_tpu_torch.training import checkpoint, trainer
 from stereo_depth_estimation_tpu_torch.training.config import parse_args
@@ -198,16 +200,57 @@ _JOIN = ["--multihost", "--coordinator-address", "localhost:1234", "--num-proces
 
 @pytest.mark.parametrize("argv", [
     ["--mesh-devices", "2", "--spatial-devices", "2"], ["--spatial-devices", "2"],
-    ["--multihost", "--aot-cache-multihost"],
-    ["--coordinator-address", "localhost:1234", *_JOIN[:1], *_JOIN[3:], "--process-id", "1",
-     "--compile"],
-    ["--process-id", "1", *_JOIN, "--aot-cache", "some/dir"], ["--compile"],
-    ["--compile-mode", "max-autotune"], ["--compile-backend", "inductor"],
-    ["--aot-cache", "some/dir"], ["--aot-cache-multihost"],
 ], ids=lambda a: a[0].lstrip("-"))
 def test_flags_without_a_mechanism_raise(argv) -> None:
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         trainer.train(parse_args(["--device", "cpu", *argv]))
+
+
+_AUTO = "<output-dir>/.aot_cache"
+
+
+# The compile flags, refused before the compiled slice: each command line is
+# accepted, and reaches torch.compile with its mode and backend ("xla" is
+# Inductor) and the compile cache with its directory; or, without
+# --compile, neither (the eager step has nothing to compile or cache).
+@pytest.mark.parametrize("argv,compiled,cache_dir", [
+    (["--multihost", "--aot-cache-multihost", "--compile"], ("default", "inductor"), _AUTO),
+    (["--coordinator-address", "localhost:1234", *_JOIN[:1], *_JOIN[3:], "--process-id", "1",
+      "--compile"], ("default", "inductor"), None),
+    (["--process-id", "1", *_JOIN, "--aot-cache", "some/dir"], None, None),
+    (["--compile"], ("default", "inductor"), _AUTO),
+    (["--compile", "--compile-mode", "max-autotune"], ("max-autotune", "inductor"), _AUTO),
+    (["--compile", "--compile-backend", "aot_eager", "--compile-mode", "reduce-overhead"],
+     ("reduce-overhead", "aot_eager"), _AUTO),
+    (["--compile", "--aot-cache", "some/dir"], ("default", "inductor"), "some/dir"),
+    (["--compile", "--aot-cache-multihost"], ("default", "inductor"), _AUTO),
+    (["--compile", "--aot-cache", "off"], ("default", "inductor"), None),
+    (["--compile-mode", "max-autotune", "--compile-backend", "inductor"], None, None),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_compile_flags_reach_torch_compile_and_the_cache(
+        argv, compiled, cache_dir, monkeypatch, tmp_path) -> None:
+    seen = []
+
+    def spy(module, **kwargs):
+        seen.append((kwargs["mode"], kwargs["backend"], kwargs["fullgraph"]))
+        return module
+
+    monkeypatch.setattr(torch, "compile", spy)
+    cfg = parse_args(["--device", "cpu", "--output-dir", str(tmp_path), *argv])
+    trainer.check_supported(cfg, torch.device("cpu"))
+    model = StereoUNet(base_channels=BASE, device="cpu")
+    state = P.create_train_state(model, P.make_adamw(model.parameters(), 1e-3, 1e-4),
+                                 compile=trainer.compile_options_from(cfg))
+    assert seen == ([] if compiled is None else [(*compiled, True)])
+    assert (state.compiled is None) == (compiled is None)
+    world = 2 if cfg.multihost else 1
+    mesh = Mesh(torch.device("cpu"), world_size=world, rank=world - 1)
+    cache = trainer.compile_cache_from(cfg, mesh, verbose=False)
+    if cache_dir is None:
+        assert cache is None
+    else:
+        want = tmp_path / ".aot_cache" if cache_dir == _AUTO else Path(cache_dir).resolve()
+        assert cache.cache_dir == want and cache.path.parent == want
 
 
 def test_accepted_jax_flags_and_augment_impl_names() -> None:
