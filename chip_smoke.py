@@ -30,6 +30,16 @@ plain PyTorch version on the card, and drives the port's two paths:
   --num-processes 2`` on the trainer phase's dataset for one epoch, each
   rank running every kernel; then the script itself joins a one-rank NCCL
   group through the CLI's default backend;
+- height sharding: two gloo processes on the card as a 1 (data) x 2
+  (spatial) mesh, each holding a height stripe of every image (128 and 112
+  of the 240 rows), the model exchanging halo rows around each of its 18
+  3x3 convolutions and the augmentation (gray means and K1) running on the
+  stripes. They take three full-width float32 augmented steps in a row on a
+  batch of 16 whose invalid pixels lie mostly in the lower stripe, each held
+  against one rank taking it over the whole images from the two ranks'
+  state before it, then run the trainer CLI with ``--multihost
+  --num-processes 2 --spatial-devices 2`` for one epoch, each rank running
+  every kernel on its stripes;
 - the compiled train step (the trainer's ``--compile``: Inductor, mode
   default, ``fullgraph=True``) at the main path's setting, with the four
   kernels inside the graph as custom ops: its cold compile, its step time
@@ -53,6 +63,7 @@ Without CUDA, or outside the repository, it exits non-zero too.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -115,7 +126,12 @@ from stereo_depth_estimation_tpu_torch.parallel.distributed import (
     next_farm_port,
     run_process_farm,
 )
-from stereo_depth_estimation_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch_to_mesh
+from stereo_depth_estimation_tpu_torch.parallel.mesh import (
+    Mesh,
+    height_blocks,
+    make_mesh,
+    shard_batch_to_mesh,
+)
 from stereo_depth_estimation_tpu_torch.training import checkpoint, trainer
 
 BATCH, HW, PAYLOAD, STEPS, WARMUP = 128, (240, 320), 512, 5, 2
@@ -172,6 +188,22 @@ MR_BATCH, MR_STEPS, MR_EPOCHS = 32, 3, 1
 # lands anywhere in [-lr, lr], and the next steps amplify it
 # (``rank_drift.py`` measures that drift).
 MR_STATS_RTOL, MR_BN_RTOL, MR_GRAD_RTOL = 1e-6, 5e-6, 0.008
+# Spatial phase: two ranks as a 1 x 2 (data x spatial) mesh take SP_STEPS
+# float32 augmented steps in a row (half the views blurred, so K1 blurs
+# across the stripes' edges) of the full-width model on a global batch of
+# SP_BATCH, each held against one rank taking that step over the whole
+# images from the same state (its generator included: a 1 x S mesh draws
+# the factors and noise one rank draws). Then the trainer CLI on the 1 x 2
+# mesh for SP_EPOCHS epoch.
+SP_BATCH, SP_STEPS, SP_EPOCHS = 16, 3, 1
+SP_AUGMENT = AugmentConfig(blur_prob=0.5)
+# Spatial vs one rank, both on the card, TF32 off, from the same state, the
+# limits read as the MR_* ones and set as they were, a small factor above the
+# reading (the gradient's at the 0.8% a ReLU kink moves a leaf by). Float
+# noise separates them: the stripes' gray-mean sums, cuDNN's algorithms at 128
+# and 112 rows against 240, the cross-rank BatchNorm's E[x^2] - E[x]^2.
+# An H100 read 8.16e-8, 3.37e-7 and 0.22% (PERF.md section 6).
+SP_STATS_RTOL, SP_BN_RTOL, SP_GRAD_RTOL = 1e-6, 5e-6, 0.008
 # The train step before the pools ran on K2/K3, same path and card
 # (PERF.md section 5, H100 80GB HBM3 at 700 W).
 BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
@@ -1027,18 +1059,28 @@ def check_live(tmp: Path, ckpt: Path, calib: dict[str, np.ndarray]) -> int:
 
 
 def multi_rank_steps(mesh: Mesh, batch: dict[str, torch.Tensor], steps: int,
-                     save_to: Path | None = None) -> dict:
+                     save_to: Path | None = None, augment: AugmentConfig | None = None,
+                     height: int | None = None) -> dict:
     """``steps`` float32 train steps of the full-width model from seed-0
-    weights on ``mesh`` (no augmentation): each step's summed LossStats and
-    gradients (on the host), the weights and buffers after them, seconds.
-    With ``save_to``, the train state before each step and after the last
-    is saved there as ``state<k>.pt``."""
+    weights on ``mesh`` (with ``augment``, augmented; on a spatial mesh the
+    images are ``height`` rows high): each step's summed LossStats and
+    gradients (on the host), the weights and buffers after them, seconds
+    (all steps and each one), and each step's peak memory and the memory
+    held at the end of its forward (the tensors saved for the backward),
+    both above what was held before it (``step_peak_bytes``,
+    ``step_forward_bytes``). With ``save_to``, the train state before each
+    step and after the last is saved there as ``state<k>.pt``."""
     model = StereoUNet(base_channels=32, device=mesh.device,
                        generator=torch.Generator().manual_seed(0),
-                       bn_group=mesh.group if mesh.distributed else None)
+                       bn_group=mesh.group if mesh.distributed else None,
+                       spatial_group=mesh.spatial_group)
     state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), 0, mesh)
-    step = make_train_step(None, mesh)
-    out = {"stats": [], "grads": [], "seconds": 0.0}
+    step = make_train_step(augment, mesh, height)
+    out = {"stats": [], "grads": [], "seconds": 0.0, "step_seconds": [],
+           "step_peak_bytes": [], "step_forward_bytes": []}
+    held = 0
+    model.register_forward_hook(lambda *_: out["step_forward_bytes"].append(
+        torch.cuda.memory_allocated() - held))
     for k in range(steps + 1):
         if save_to is not None:
             checkpoint.save_checkpoint(save_to, f"state{k}", state, epoch=k, config={},
@@ -1046,31 +1088,45 @@ def multi_rank_steps(mesh: Mesh, batch: dict[str, torch.Tensor], steps: int,
         if k == steps:
             break
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, stats = step(state, batch)
         out["stats"].append([float(s) for s in stats])
-        out["seconds"] += time.perf_counter() - t0
+        out["step_seconds"].append(time.perf_counter() - t0)
+        out["step_peak_bytes"].append(torch.cuda.max_memory_allocated() - held)
+        out["seconds"] += out["step_seconds"][-1]
         out["grads"].append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     out["weights"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     return out
 
 
-def one_rank_steps_from(states: Path, batch: dict[str, torch.Tensor], steps: int) -> list:
+def one_rank_steps_from(states: Path, batch: dict[str, torch.Tensor], steps: int,
+                        augment: AugmentConfig | None = None) -> list:
     """For each k < ``steps``, one float32 step on one rank over ``batch``
-    from the train state saved as ``states/state<k>.pt``: its LossStats,
-    gradients, the weights after it and its seconds. One model, built once,
-    loads each state."""
+    from the train state saved as ``states/state<k>.pt`` (its generator
+    too): its LossStats, gradients, the weights after it, its seconds, and
+    its peak memory and the memory held at the end of its forward, both
+    above what was held before it. One model, built once, loads each
+    state."""
     model = StereoUNet(base_channels=32, device="cuda")
+    held, forward_bytes = 0, []
+    model.register_forward_hook(lambda *_: forward_bytes.append(
+        torch.cuda.memory_allocated() - held))
     state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), 0)
-    step = make_train_step(None)
+    step = make_train_step(augment)
     out = []
     for k in range(steps):
         state, _ = checkpoint.load_train_state(states / f"state{k}.pt", state)
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, stats = step(state, batch)
         stats = [float(s) for s in stats]
         out.append({"stats": stats, "seconds": time.perf_counter() - t0,
+                    "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                    "forward_bytes": forward_bytes[-1],
                     "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
                     "weights": {n: v.detach().to("cpu", copy=True)
                                 for n, v in model.state_dict().items()}})
@@ -1084,6 +1140,55 @@ def largest_leaf_gap(want: dict, got: dict) -> tuple[float, str]:
     top = max(float(g.norm()) for g in want.values())
     return max((float((got[n] - g).norm()) / max(float(g.norm()), GRAD_FLOOR * top), n)
                for n, g in want.items())
+
+
+def held_against_one_rank(two: dict, ones: list, states: Path, what: str, stats_rtol: float,
+                          grad_rtol: float, bn_rtol: float) -> str:
+    """Check each of several ranks' steps (``two``, from ``multi_rank_steps``)
+    against one rank's step from the same state (``ones``, from
+    ``one_rank_steps_from``; the states after each step are in ``states``):
+    the summed LossStats within ``stats_rtol`` relative, each gradient leaf
+    within ``grad_rtol`` of its norm, the BatchNorm running statistics within
+    ``bn_rtol`` of theirs, and weights over lr/2 apart only where the two
+    gradients are float noise across zero (AdamW's first update there lands
+    anywhere in [-lr, lr]). Returns the readings as text."""
+    stats_gap = grad_gap = bn_gap = 0.0
+    grad_leaf = bn_buffer = ""
+    apart = total = 0
+    for k, one in enumerate(ones):
+        after = torch.load(states / f"state{k + 1}.pt", weights_only=False)["model_state_dict"]
+        stats_gap = max(stats_gap, *(abs(a - b) / max(abs(b), 1e-12)
+                                     for a, b in zip(two["stats"][k], one["stats"])))
+        g1, g2 = one["grads"], two["grads"][k]
+        gap, leaf = largest_leaf_gap(g1, g2)
+        if gap > grad_gap:
+            grad_gap, grad_leaf = gap, f"{leaf} at step {k + 1}"
+        for n, w in one["weights"].items():
+            w2 = after[n].cpu()
+            if n in g1:
+                far = (w2 - w).abs() > 5e-4
+                noise = 2 * (g2[n] - g1[n]).abs() >= torch.minimum(
+                    g1[n].abs(), g2[n].abs()) + 1e-8
+                wrong = int((far & ~noise).sum())
+                check(wrong == 0, f"{what} at step {k + 1}: {wrong} weights of {n} "
+                      "over lr/2 apart where their gradients agree")
+                apart += int(far.sum())
+                total += w.numel()
+            elif n.endswith(("running_mean", "running_var")):
+                rel = float((w2 - w).norm()) / max(float(w.norm()), 1e-12)
+                if rel > bn_gap:
+                    bn_gap, bn_buffer = rel, f"{n} at step {k + 1}"
+            else:
+                check(torch.equal(w2, w), f"{what} at step {k + 1}: {n}")
+    check(stats_gap <= stats_rtol, f"{what}: LossStats gap {stats_gap:.3g}")
+    check(grad_gap <= grad_rtol, f"{what}: gradient of {grad_leaf} differs by "
+          f"{grad_gap:.3g} of its norm")
+    check(bn_gap <= bn_rtol, f"{what}: {bn_buffer} differs by {bn_gap:.3g}")
+    return (f"LossStats within {stats_gap:.3g} (tol {stats_rtol:g}); gradients within "
+            f"{grad_gap:.3g} of their norm (largest in {grad_leaf}; tol {grad_rtol:g}); "
+            f"{apart} of {total} weight updates over lr/2 apart, each where its gradient is "
+            f"float noise across zero; BN running statistics within {bn_gap:.3g} (largest "
+            f"{bn_buffer}; tol {bn_rtol:g})")
 
 
 def mr_batch() -> dict[str, np.ndarray]:
@@ -1243,52 +1348,16 @@ def phase_multi_rank(tmp: Path) -> dict[str, list[int]]:
                     for s in (slice(0, MR_BATCH // 2), slice(MR_BATCH // 2, None))]
     check(two["stats"][0][4] == float(sum(counts_valid)), "valid count is not the global one")
     whole = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
-    stats_gap = grad_gap = bn_gap = 0.0
-    grad_leaf = bn_buffer = ""
-    apart = total = 0
     ones = one_rank_steps_from(tmp / "mr_states", whole, MR_STEPS)
     del whole
-    for k, one in enumerate(ones):
-        after = torch.load(tmp / "mr_states" / f"state{k + 1}.pt",
-                           weights_only=False)["model_state_dict"]
-        stats_gap = max(stats_gap, *(abs(a - b) / max(abs(b), 1e-12)
-                                     for a, b in zip(two["stats"][k], one["stats"])))
-        g1, g2 = one["grads"], two["grads"][k]
-        gap, leaf = largest_leaf_gap(g1, g2)
-        if gap > grad_gap:
-            grad_gap, grad_leaf = gap, f"{leaf} at step {k + 1}"
-        for n, w in one["weights"].items():
-            w2 = after[n].cpu()
-            if n in g1:
-                far = (w2 - w).abs() > 5e-4
-                noise = 2 * (g2[n] - g1[n]).abs() >= torch.minimum(
-                    g1[n].abs(), g2[n].abs()) + 1e-8
-                wrong = int((far & ~noise).sum())
-                check(wrong == 0, f"two ranks vs one at step {k + 1}: {wrong} weights of {n} "
-                      "over lr/2 apart where their gradients agree")
-                apart += int(far.sum())
-                total += w.numel()
-            elif n.endswith(("running_mean", "running_var")):
-                rel = float((w2 - w).norm()) / max(float(w.norm()), 1e-12)
-                if rel > bn_gap:
-                    bn_gap, bn_buffer = rel, f"{n} at step {k + 1}"
-            else:
-                check(torch.equal(w2, w), f"two ranks vs one at step {k + 1}: {n}")
-    check(stats_gap <= MR_STATS_RTOL, f"two ranks vs one: LossStats gap {stats_gap:.3g}")
-    check(grad_gap <= MR_GRAD_RTOL, f"two ranks vs one: gradient of {grad_leaf} differs by "
-          f"{grad_gap:.3g} of its norm")
-    check(bn_gap <= MR_BN_RTOL, f"two ranks vs one: {bn_buffer} differs by {bn_gap:.3g}")
+    gaps = held_against_one_rank(two, ones, tmp / "mr_states", "two ranks vs one",
+                                 MR_STATS_RTOL, MR_GRAD_RTOL, MR_BN_RTOL)
     print(f"multi-rank: 2 gloo ranks on cuda:0, base 32 f32 (TF32 off) {HW[0]}x{HW[1]}, "
           f"global batch {MR_BATCH} as 2 x {MR_BATCH // 2} (valid pixels {counts_valid[0]} "
           f"and {counts_valid[1]}; the second stripe's pixels below 128), {MR_STEPS} steps in "
           f"a row, each held against one rank taking it over the whole batch from the two "
-          f"ranks' state before it: LossStats within {stats_gap:.3g} (tol "
-          f"{MR_STATS_RTOL:g}); gradients within {grad_gap:.3g} of their norm (largest in "
-          f"{grad_leaf}; tol {MR_GRAD_RTOL:g}); {apart} of {total} weight updates over lr/2 "
-          f"apart, each where its gradient is float noise across zero; BN running "
-          f"statistics within {bn_gap:.3g} (largest {bn_buffer}; tol {MR_BN_RTOL:g}); the "
-          f"ranks' weights bitwise equal after the steps ok; two ranks "
-          f"{1e3 * two['seconds'] / MR_STEPS:.1f} ms/step, one rank "
+          f"ranks' state before it: {gaps}; the ranks' weights bitwise equal after the steps "
+          f"ok; two ranks {1e3 * two['seconds'] / MR_STEPS:.1f} ms/step, one rank "
           f"{', '.join(f'{1e3 * o["seconds"]:.1f}' for o in ones)} ms (one model loading "
           f"each state: cuDNN's first choices in the first)")
 
@@ -1359,6 +1428,226 @@ def phase_multi_rank(tmp: Path) -> dict[str, list[int]]:
           f"equals the step without a group bitwise; trainer CLI --multihost "
           f"--num-processes 1 ran {nccl['global_step']} steps with launches "
           f"{nccl['counts']} ok ({time.perf_counter() - t0:.1f} s for the whole phase)")
+    return launches
+
+
+def sp_batch() -> dict[str, np.ndarray]:
+    """The spatial check's global batch: random uint8 pairs, targets with 8
+    invalid rows at the top and every row from 160 down invalid, so most
+    invalid pixels lie in the lower stripe (rows 128-239): the stripes'
+    valid counts differ. The lower stripe's pixels are darker (below 128),
+    so a stripe's own gray means or BatchNorm statistics would be far from
+    the whole image's."""
+    rng = np.random.default_rng(13)
+    target = rng.uniform(0.5, 64.0, (SP_BATCH, *HW)).astype(np.float32)
+    target[:, :8] = 0.0
+    target[:, 160:] = 0.0
+    inputs = rng.integers(0, 256, (SP_BATCH, *HW, 6), dtype=np.uint8)
+    inputs[:, 128:] //= 2
+    return {"input": inputs, "target": target}
+
+
+# The input (channels, pool level) of each of the StereoUNet's 18 3x3
+# convolutions at base 32, encoder first: each exchanges one halo row of
+# that many channels at width W >> level.
+CONV_INPUTS = [(6, 0), (32, 0), (32, 1), (64, 1), (64, 2), (128, 2), (128, 3), (256, 3),
+               (256, 4), (512, 4), (512, 3), (256, 3), (256, 2), (128, 2), (128, 1), (64, 1),
+               (64, 0), (32, 0)]
+
+
+def halo_exchanges(mesh: Mesh, n: int) -> tuple[float, float]:
+    """The halo all-reduces of one float32 step at batch ``n`` alone, on the
+    spatial group, each timed to completion on the host: per convolution one
+    exchange forward and one backward, of a zero buffer (S, 2, n, 1, W >>
+    level, channels). Returns (ms, MB all-reduced) per step."""
+    bufs = [torch.zeros((mesh.spatial, 2, n, 1, HW[1] >> level, c), device=mesh.device)
+            for c, level in CONV_INPUTS] * 2
+    group = mesh.spatial_group.group
+    torch.distributed.all_reduce(bufs[0], group=group)  # warm-up
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for b in bufs:
+            torch.distributed.all_reduce(b, group=group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps, sum(b.numel() * 4 for b in bufs) / 1e6
+
+
+def halo_copies_ms(mesh: Mesh, n: int, h: int) -> float:
+    """Device milliseconds of the halo exchanges' copies in one float32 step
+    at batch ``n`` on a stripe of ``h`` rows, without their all-reduces: per
+    convolution, forward the edge rows written into a zero buffer and the
+    concatenation; backward another zero buffer, the copy of the stripe's
+    gradient and the two halo rows added into it. The timed calls are queued
+    behind a spin of the card (~20 ms) that outlasts their enqueue."""
+    s = mesh.spatial
+    cases = [(torch.zeros((n, h >> level, HW[1] >> level, c), device=mesh.device),
+              torch.zeros((n, (h >> level) + 2, HW[1] >> level, c), device=mesh.device))
+             for c, level in CONV_INPUTS]
+
+    def copies() -> None:
+        for x, g in cases:
+            buf = x.new_zeros((s, 2, n, 1, *x.shape[2:]))
+            buf[0, 0], buf[0, 1] = x[:, :1], x[:, -1:]
+            torch.cat([buf[1, 1], x, buf[1, 0]], dim=1)
+            back = g.new_zeros((s, 2, n, 1, *g.shape[2:]))
+            back[0, 0], back[0, 1] = g[:, :1], g[:, -1:]
+            dx = g[:, 1:-1].clone()
+            dx[:, :1] += back[1, 1]
+            dx[:, -1:] += back[1, 0]
+
+    reps = 5
+    copies()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        copies()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def spatial_child(rank: int, tmp_dir: str) -> None:
+    """One of the two ranks of the spatial phase, in a process of its own on
+    cuda:0 (``python -c``, from the repository root): the augmented steps on
+    its height stripes, then the trainer CLI on the 1 x 2 mesh; prints one
+    RESULT line."""
+    tmp = Path(tmp_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    address = f"file://{tmp / 'sp_rendezvous'}"
+    initialize_multihost(address, 2, rank, device=device, backend="gloo")
+    mesh = make_mesh(device, spatial=2)
+    batch = shard_batch_to_mesh(sp_batch(), mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    steps = multi_rank_steps(mesh, batch, SP_STEPS, tmp / "sp_states" if rank == 0 else None,
+                             SP_AUGMENT, HW[0])
+    torch.cuda.synchronize()
+    step_counts = counts()
+    peak_gib = steps["step_peak_bytes"][-1] / 2**30
+    forward_gib = steps["step_forward_bytes"][-1] / 2**30
+    step_ms = [1e3 * t for t in steps["step_seconds"]]
+    block = list(batch["input"].shape[:2])
+    torch.save(steps if rank == 0 else {"weights": steps["weights"]}, tmp / f"sp_rank{rank}.pt")
+    del batch, steps
+    torch.cuda.empty_cache()
+    halo_ms, halo_mb = halo_exchanges(mesh, SP_BATCH)
+    copies_ms = halo_copies_ms(mesh, SP_BATCH, block[1])
+
+    epoch_seconds = timed_train_epochs()
+    summary, run_counts, seconds = counted(trainer.main, trainer_argv(
+        tmp, "--epochs", str(SP_EPOCHS), "--mlflow-tracking-uri", str(tmp / "sp_mlruns"),
+        "--output-dir", str(tmp / "sp_outputs"), "--multihost", "--coordinator-address",
+        address, "--num-processes", "2", "--process-id", str(rank), "--spatial-devices", "2"))
+    summary.pop("state")
+    torch.distributed.destroy_process_group()
+    print("RESULT " + json.dumps({
+        "rank": rank, "block": block, "step_counts": step_counts, "step_ms": step_ms,
+        "peak_gib": peak_gib, "forward_gib": forward_gib, "halo_ms": halo_ms,
+        "halo_mb": halo_mb,
+        "copies_ms": copies_ms, "summary": summary,
+        "counts": run_counts, "seconds": seconds, "epoch_train_seconds": epoch_seconds}),
+        flush=True)
+
+
+def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
+    """Two gloo ranks on the card as a 1 x 2 spatial mesh against one rank,
+    then the trainer CLI on that mesh (see the module docstring). Returns
+    each kernel's launches on each rank in the steps and in the trainer
+    run."""
+    repo = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    farm = run_process_farm(
+        "import sys, chip_smoke; chip_smoke.spatial_child(int(sys.argv[1]), sys.argv[2])",
+        lambda i: [str(i), str(tmp)], num_processes=2, timeout=600, cwd=repo)
+    results = [json.loads(line) for line, _ in farm]
+    farm_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"sp_rank{r}.pt", weights_only=False) for r in range(2)]
+    two = ranks[0]
+    check(all(torch.equal(v, ranks[1]["weights"][k]) for k, v in two["weights"].items()),
+          "the two stripes' ranks' weights differ")
+    blocks = height_blocks(HW[0], 2)
+    check([r["block"] for r in results] == [[SP_BATCH, b - a] for a, b in blocks],
+          f"stripes {[r['block'] for r in results]}, expected the rows of {blocks}")
+
+    data = sp_batch()
+    valid = [int((data["target"][:, a:b] > 0).sum()) for a, b in blocks]
+    check(two["stats"][0][4] == float(sum(valid)), "valid count is not the global one")
+    whole = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    ones = one_rank_steps_from(tmp / "sp_states", whole, SP_STEPS, SP_AUGMENT)
+    del whole
+    gaps = held_against_one_rank(two, ones, tmp / "sp_states", "1 x 2 spatial vs one rank",
+                                 SP_STATS_RTOL, SP_GRAD_RTOL, SP_BN_RTOL)
+    expected = {"GM": SP_STEPS, "K1": SP_STEPS, "K2": 4 * SP_STEPS, "K3": 4 * SP_STEPS}
+    for r, result in enumerate(results):
+        check(result["step_counts"] == expected,
+              f"rank {r} step launches {result['step_counts']}, expected {expected}")
+    print(f"spatial: 2 gloo ranks on cuda:0 as a 1 (data) x 2 (spatial) mesh, base 32 f32 "
+          f"(TF32 off) {HW[0]}x{HW[1]}, stripes of {blocks[0][1] - blocks[0][0]} and "
+          f"{blocks[1][1] - blocks[1][0]} rows, global batch {SP_BATCH} (valid pixels "
+          f"{valid[0]} and {valid[1]} in the two stripes; the lower stripe's pixels below "
+          f"128), {SP_STEPS} augmented steps in a row (blur_prob {SP_AUGMENT.blur_prob}), "
+          f"each held against one rank taking it over the whole images from the two ranks' "
+          f"state before it: {gaps}; the ranks' weights bitwise equal after the steps; "
+          f"launches per rank {[r['step_counts'] for r in results]} ok ({card()})")
+    print(f"spatial: step ms on rank 0 "
+          f"{', '.join(f'{t:.1f}' for t in results[0]['step_ms'])}, rank 1 "
+          f"{', '.join(f'{t:.1f}' for t in results[1]['step_ms'])} (the first with cuDNN's "
+          f"first choices; two ranks share one card and gloo goes through the host: not a "
+          f"scaling figure); one rank over the whole images "
+          f"{', '.join(f'{1e3 * o["seconds"]:.1f}' for o in ones)} ms; the last step's "
+          f"memory above what was held before it, at the end of the forward / at its peak: "
+          f"{results[0]['forward_gib']:.3f} / {results[0]['peak_gib']:.3f} GiB on rank 0, "
+          f"{results[1]['forward_gib']:.3f} / {results[1]['peak_gib']:.3f} GiB on rank 1, "
+          f"{ones[-1]['forward_bytes'] / 2**30:.3f} / {ones[-1]['peak_bytes'] / 2**30:.3f} GiB "
+          f"on one rank; the 36 halo all-reduces of a step "
+          f"alone ({results[0]['halo_mb']:.1f} MB) {results[0]['halo_ms']:.1f} / "
+          f"{results[1]['halo_ms']:.1f} ms on ranks 0 / 1, their copies on the card "
+          f"(packing and concatenation, forward and backward) {results[0]['copies_ms']:.3f} / "
+          f"{results[1]['copies_ms']:.3f} ms ({card()})")
+
+    summaries = [r["summary"] for r in results]
+    train_n = len(split_samples(discover_samples(tmp / "data"), 0.1, 42)[0])
+    steps_per_epoch = train_n // TRAIN_BATCH
+    steps = SP_EPOCHS * steps_per_epoch
+    check([s["global_step"] for s in summaries] == [steps, steps],
+          f"spatial trainer global steps {[s['global_step'] for s in summaries]}")
+    check(summaries[1]["run_id"] == "multihost-follower" != summaries[0]["run_id"]
+          and all(s["device_resident"] == "pinned" for s in summaries),
+          f"spatial trainer summaries {summaries}")
+    for a, b in zip(*(s["epochs"] for s in summaries)):
+        check(a["val_mae"] == b["val_mae"] and math.isfinite(a["val_mae"]),
+              f"stripes' val_mae {a['val_mae']} vs {b['val_mae']}")
+    runs = sorted((tmp / "sp_outputs").iterdir())
+    check([r.name for r in runs] == [summaries[0]["run_id"]], f"run directories {runs}")
+    check((runs[0] / "checkpoints" / "last.pt").is_file(), "no last.pt from the spatial trainer")
+    previews = sorted((runs[0] / "mlflow_previews").rglob("*.png"))
+    check(len(previews) == 4 * SP_EPOCHS
+          and all(Image.open(p).size == (4 * HW[1], HW[0]) for p in previews),
+          f"spatial trainer previews {previews}")
+    launches: dict[str, dict[str, list[int]]] = {"steps": {}, "trainer": {}}
+    for r, result in enumerate(results):
+        # Both ranks of data row 0 predict the previews, each its stripe.
+        want = {"GM": steps, "K1": steps, "K3": 4 * steps,
+                "K2": 4 * (steps + SP_EPOCHS * 2)}  # a validation batch, the previews
+        got = {k: result["counts"][k] for k in want}
+        check(got == want, f"rank {r} spatial trainer launches {got}, expected {want}")
+        for k in want:
+            launches["steps"].setdefault(k, []).append(result["step_counts"][k])
+            launches["trainer"].setdefault(k, []).append(got[k])
+    step_ms = [1e3 * r["epoch_train_seconds"][-1] / steps_per_epoch for r in results]
+    print(f"spatial: trainer CLI --multihost --num-processes 2 --spatial-devices 2 (gloo, "
+          f"both ranks on cuda:0), base 32 bf16, global batch {TRAIN_BATCH} on 2 stripes, "
+          f"pinned, {SP_EPOCHS} epoch of {steps_per_epoch} steps: rank 0 alone wrote "
+          f"last.pt and {len(previews)} whole-image previews; launches per rank "
+          f"{[r['counts'] for r in results]} ok; training {step_ms[0]:.1f} / "
+          f"{step_ms[1]:.1f} ms per step on ranks 0 / 1 (cuDNN's first choices included); "
+          f"{farm_s:.1f} s with both processes' start ({card()})")
     return launches
 
 
@@ -1720,16 +2009,22 @@ def fresh_compile_caches() -> Path:
     return root
 
 
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -1921,6 +2216,8 @@ def run_all(caches: Path) -> int:
         mark("serving")
         multi_rank = phase_multi_rank(Path(tmp))
         mark("multi-rank")
+        spatial = phase_spatial(Path(tmp))
+        mark("spatial")
         cache = phase_compile_cache(Path(tmp), caches)
         mark("compile cache")
     # K2 in float32, as serving runs it, at batch 30 and batch 1.
@@ -1941,6 +2238,8 @@ def run_all(caches: Path) -> int:
     # indices and its backward, which the port never calls.
     kernels[0]["multi_rank_launches"] = multi_rank["K1"]
     kernels[1]["multi_rank_launches"] = multi_rank["GM"]
+    for kernel, name in ((kernels[0], "K1"), (kernels[1], "GM")):
+        kernel["spatial_launches"] = {part: spatial[part][name] for part in spatial}
     for name, fn, line in (("K2", "maxpool2x2_fwd", 91), ("K3", "maxpool2x2_bwd", 112)):
         kernels.append({
             "name": fn,
@@ -1951,6 +2250,7 @@ def run_all(caches: Path) -> int:
             "bound_by": "bytes",
             **pool_times[name],
             "multi_rank_launches": multi_rank[name],
+            "spatial_launches": {part: spatial[part][name] for part in spatial},
         })
     for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3")):
         kernel["compiled_launches"] = compiled["launches"][name]

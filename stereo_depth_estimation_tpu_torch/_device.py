@@ -1,6 +1,7 @@
 """Device selection shared by the port's entry points, the number of ranks a
-process starts, and the refusal of command-line flags whose mechanism the
-port does not have yet."""
+process starts, and the refusal of the one command-line flag whose mechanism
+the port does not have yet: the serving CLIs' compile-cache directory (their
+forwards are not compiled)."""
 
 from __future__ import annotations
 
@@ -62,15 +63,10 @@ def local_rank_count(
     return wanted
 
 
-def unported_refusals(
-    *, spatial_devices: int = 1, aot_cache: str = "off"
-) -> list[tuple[bool, str]]:
-    """(refused, what) for the JAX CLIs' spatial flag and, for the serving
-    CLIs, whose forwards are not compiled yet, a compile-cache directory."""
+def unported_refusals(*, aot_cache: str = "off") -> list[tuple[bool, str]]:
+    """(refused, what) for the serving CLIs, whose forwards are not compiled
+    yet: a compile-cache directory."""
     return [
-        (spatial_devices != 1,
-         f"--spatial-devices {spatial_devices}: height sharding (ROADMAP Queue 1 "
-         "item 11)"),
         (aot_cache not in ("auto", "off"),
          f"--aot-cache {aot_cache}: compiling the serving forwards and their compile "
          "cache (ROADMAP Queue 1 item 13); they run eagerly, so only 'auto' and "

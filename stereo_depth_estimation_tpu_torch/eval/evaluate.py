@@ -18,9 +18,12 @@ own and every metric is a masked sum, so a short last batch gives the metrics
 the JAX CLI's padded one gives.
 
 ``--mesh-devices N`` scores on N ranks, one GPU each, as the JAX CLI shards
-over N devices: each rank fetches its stripe of every batch, padded with
-flagged wrap rows to the world size (``MultihostBatcher``), and the metric
-sums are summed over the ranks; rank 0 prints the line.
+over N devices: each rank fetches its block of every batch, padded with
+flagged wrap rows to the data rows (``MultihostBatcher``), and the metric
+sums are summed over the ranks; rank 0 prints the line. With
+``--spatial-devices S`` the ranks form a (N / S, S) mesh that also shards
+image height, the model exchanging halo rows around its convolutions
+(``parallel/mesh.py``); an N that S does not divide raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Ranks, one GPU each (0 = all visible GPUs; one "
                              "rank on the CPU); batches split over them.")
     parser.add_argument("--spatial-devices", type=int, default=1,
-                        help="Height sharding: not ported, only 1 is taken.")
+                        help="Shard image height over this many of the ranks "
+                             "(a (ranks / N, N) mesh); it must divide them.")
     parser.add_argument("--aot-cache", type=str, default="auto",
                         help="The JAX CLI's executable cache; this forward runs "
                              "eagerly (compiled serving is ROADMAP Queue 1 item "
@@ -85,11 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def evaluate(args: argparse.Namespace) -> dict[str, Any]:
     device = resolve_cli_device(args.device)
-    raise_refused(unported_refusals(
-        spatial_devices=args.spatial_devices, aot_cache=args.aot_cache,
-    ))
+    raise_refused(unported_refusals(aot_cache=args.aot_cache))
     local = local_rank_count(device, args.mesh_devices)
-    return run_ranks(evaluate_rank, (args,), device=device, local_ranks=local)
+    return run_ranks(evaluate_rank, (args,), device=device, local_ranks=local,
+                     spatial=args.spatial_devices)
 
 
 def evaluate_rank(mesh: Mesh, args: argparse.Namespace) -> dict[str, Any]:
@@ -108,7 +111,8 @@ def evaluate_rank(mesh: Mesh, args: argparse.Namespace) -> dict[str, Any]:
         args.output_dir, checkpoint=args.checkpoint, run_id=args.run_id,
         checkpoint_name=args.checkpoint_name,
     )
-    model = StereoUNet(base_channels=args.base_channels, device=device)
+    model = StereoUNet(base_channels=args.base_channels, device=device,
+                       spatial_group=mesh.spatial_group)
     ckpt_meta = load_model_variables(checkpoint_path, model)
     # The eval step reads only the model; nothing here trains.
     state = TrainState(model=model, optimizer=None, generator=None)

@@ -26,6 +26,17 @@ every BatchNorm is a ``MeshBatchNorm2d`` instead: its statistics are global
 over the group's ranks, as the JAX BatchNorm's are over the mesh. Its
 parameter and buffer names are ``nn.BatchNorm2d``'s, so checkpoints do not
 change.
+
+Built with ``spatial_group``, a ``SpatialGroup`` (``ops/halo.py``) of more
+than one rank, the model runs on a height stripe of each image, as the JAX
+model runs on a ``(data, spatial)`` mesh: every 3x3 convolution is a
+``HaloConv2d``, which takes one row from each neighbouring stripe (zeros at
+the image's top and bottom) and convolves with padding (0, 1). The pools,
+the transposed convolutions (stride 2: each output row reads one input row),
+the skip concatenations and the 1x1 heads are local to a stripe. With
+``bn_group`` the world group, the BatchNorm statistics are global over data
+rows and stripes. The parameter names stay ``nn.Conv2d``'s. Without a
+spatial group none of this runs.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..ops.halo import SpatialGroup
 from ..ops.pool import max_pool_2x2
 
 
@@ -107,16 +119,40 @@ def _batch_norm(channels: int, group) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels)
 
 
+class HaloConv2d(nn.Conv2d):
+    """3x3 convolution (no bias) of a height stripe: the stripe gets one row
+    of each neighbouring stripe (``SpatialGroup.pad``), and the convolution
+    pads only the width. The output stays channels_last."""
+
+    def __init__(self, in_channels: int, out_channels: int, spatial: SpatialGroup) -> None:
+        super().__init__(in_channels, out_channels, 3, padding=(0, 1), bias=False)
+        self.spatial = spatial
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # (N, C, h, W) channels_last is (N, h, W, C) in memory: the halo rows
+        # are concatenated there and viewed back without a copy.
+        padded = self.spatial.pad(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return super().forward(padded)
+
+
+def _conv3x3(in_channels: int, out_channels: int,
+             spatial: SpatialGroup | None) -> nn.Conv2d:
+    if spatial is not None and spatial.size > 1:
+        return HaloConv2d(in_channels, out_channels, spatial)
+    return nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
+
+
 class ConvBlock(nn.Module):
     """(Conv3x3 no-bias -> BatchNorm -> ReLU) x2."""
 
-    def __init__(self, in_channels: int, out_channels: int, bn_group=None) -> None:
+    def __init__(self, in_channels: int, out_channels: int, bn_group=None,
+                 spatial_group: SpatialGroup | None = None) -> None:
         super().__init__()
         self.block = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
+            _conv3x3(in_channels, out_channels, spatial_group),
             _batch_norm(out_channels, bn_group),
             nn.ReLU(inplace=True),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
+            _conv3x3(out_channels, out_channels, spatial_group),
             _batch_norm(out_channels, bn_group),
             nn.ReLU(inplace=True),
         )
@@ -135,11 +171,14 @@ class StereoUNet(nn.Module):
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
         bn_group=None,
+        spatial_group: SpatialGroup | None = None,
     ) -> None:
         """``generator`` (a CPU generator) re-draws every conv weight and bias
         from PyTorch's default distributions, so a seed fixes the weights.
         ``bn_group``: a ``torch.distributed`` group; with more than one rank
-        the BatchNorm statistics are global over it (``MeshBatchNorm2d``)."""
+        the BatchNorm statistics are global over it (``MeshBatchNorm2d``).
+        ``spatial_group``: with more than one rank the model runs on height
+        stripes (``HaloConv2d``)."""
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
@@ -148,19 +187,19 @@ class StereoUNet(nn.Module):
         self.compute_dtype = compute_dtype
         c1 = base_channels
         c2, c3, c4, c5 = c1 * 2, c1 * 4, c1 * 8, c1 * 16
-        self.enc1 = ConvBlock(in_channels, c1, bn_group)
-        self.enc2 = ConvBlock(c1, c2, bn_group)
-        self.enc3 = ConvBlock(c2, c3, bn_group)
-        self.enc4 = ConvBlock(c3, c4, bn_group)
-        self.bottleneck = ConvBlock(c4, c5, bn_group)
+        self.enc1 = ConvBlock(in_channels, c1, bn_group, spatial_group)
+        self.enc2 = ConvBlock(c1, c2, bn_group, spatial_group)
+        self.enc3 = ConvBlock(c2, c3, bn_group, spatial_group)
+        self.enc4 = ConvBlock(c3, c4, bn_group, spatial_group)
+        self.bottleneck = ConvBlock(c4, c5, bn_group, spatial_group)
         self.up4 = nn.ConvTranspose2d(c5, c4, 2, stride=2)
-        self.dec4 = ConvBlock(c4 + c4, c4, bn_group)
+        self.dec4 = ConvBlock(c4 + c4, c4, bn_group, spatial_group)
         self.up3 = nn.ConvTranspose2d(c4, c3, 2, stride=2)
-        self.dec3 = ConvBlock(c3 + c3, c3, bn_group)
+        self.dec3 = ConvBlock(c3 + c3, c3, bn_group, spatial_group)
         self.up2 = nn.ConvTranspose2d(c3, c2, 2, stride=2)
-        self.dec2 = ConvBlock(c2 + c2, c2, bn_group)
+        self.dec2 = ConvBlock(c2 + c2, c2, bn_group, spatial_group)
         self.up1 = nn.ConvTranspose2d(c2, c1, 2, stride=2)
-        self.dec1 = ConvBlock(c1 + c1, c1, bn_group)
+        self.dec1 = ConvBlock(c1 + c1, c1, bn_group, spatial_group)
         # Both heads always exist (the reference model defines both).
         self.disparity_head = nn.Conv2d(c1, out_channels, 1)
         self.logvar_head = nn.Conv2d(c1, 1, 1)
@@ -188,16 +227,17 @@ class StereoUNet(nn.Module):
     def forward(
         self, x: torch.Tensor, return_uncertainty: bool = False
     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-        """x: (N, H, W, in_channels), H and W divisible by 16. Train or eval
-        BatchNorm follows ``self.training``.
+        """x: (N, H, W, in_channels), H and W divisible by 16 (on height
+        stripes, each stripe's height). Train or eval BatchNorm follows
+        ``self.training``.
 
         Returns disparity (N, H, W, out_channels), plus clamped logvar
         (N, H, W, 1) when ``return_uncertainty``, both float32."""
         h, w = x.shape[-3], x.shape[-2]
         if h % 16 or w % 16:
             raise ValueError(
-                f"StereoUNet input height/width must be divisible by 16 "
-                f"(4 pool levels); got {h}x{w}."
+                f"StereoUNet input height/width (a stripe's, on height stripes) must "
+                f"be divisible by 16 (4 pool levels); got {h}x{w}."
             )
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last in memory
         if x.dtype != self.compute_dtype:

@@ -20,6 +20,15 @@ This module is the CPU path of the augmentation and, on the card, the oracle
 that the CUDA kernel (``ops/augment_cuda.py``) is held against. Randomness
 comes from an explicit ``torch.Generator``; its device decides where the
 factors are drawn.
+
+On a height stripe (``stripe``, an ``ops/halo.py`` ``Stripe``) the chain
+computes what it computes on the whole image: the contrast blend's gray
+means are sums over the stripes, all-reduced over the spatial group; the
+blur reads ``k // 2`` rows of each neighbouring stripe, so that its reflect
+padding applies only at the image's top and bottom; and the noise is drawn
+at the whole image's shape and cut to the stripe. The factors are drawn per
+image, so every stripe of a data row draws the same from the generator they
+share.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from .halo import Stripe
 
 _GRAY_WEIGHTS = (0.2989, 0.587, 0.114)  # torchvision rgb_to_grayscale
 
@@ -89,8 +100,15 @@ def adjust_brightness(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     return _blend(img, torch.zeros_like(img), _bcast(factor))
 
 
-def adjust_contrast(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
-    mean = rgb_to_grayscale(img).mean(dim=(1, 2, 3), keepdim=True)
+def adjust_contrast(
+    img: torch.Tensor, factor: torch.Tensor, stripe: Stripe | None = None
+) -> torch.Tensor:
+    gray = rgb_to_grayscale(img)
+    if stripe is None:
+        mean = gray.mean(dim=(1, 2, 3), keepdim=True)
+    else:
+        sums = stripe.spatial.sum_(gray.sum(dim=(1, 2, 3), keepdim=True))
+        mean = sums / (stripe.height * img.shape[2])
     return _blend(img, mean, _bcast(factor))
 
 
@@ -232,18 +250,31 @@ def sample_factors(
     }
 
 
+def blur_stripe(
+    img: torch.Tensor, sigma: torch.Tensor, kernel_size: int, stripe: Stripe | None
+) -> torch.Tensor:
+    """``gaussian_blur`` of an image or, with ``stripe``, of a height stripe
+    as a cut of the whole image's blur: the stripe is extended by the
+    neighbours' ``kernel_size // 2`` rows, blurred, and cut back."""
+    if stripe is None:
+        return gaussian_blur(img, sigma, kernel_size)
+    extended, top = stripe.spatial.extend(img, kernel_size // 2)
+    return gaussian_blur(extended, sigma, kernel_size)[:, top:top + img.shape[1]]
+
+
 def _chain_pre_noise(
-    images: torch.Tensor, factors: dict[str, torch.Tensor], config: AugmentConfig
+    images: torch.Tensor, factors: dict[str, torch.Tensor], config: AugmentConfig,
+    stripe: Stripe | None = None,
 ) -> torch.Tensor:
     """Pointwise stages + probabilistic blur, WITHOUT noise/clamp. (N,H,W,3)."""
     img = images.to(torch.float32)
     img = adjust_brightness(img, factors["brightness"])
-    img = adjust_contrast(img, factors["contrast"])
+    img = adjust_contrast(img, factors["contrast"], stripe)
     img = adjust_saturation(img, factors["saturation"])
     img = adjust_hue(img, factors["hue"])
     img = adjust_gamma(img, factors["gamma"])
     if config.blur_enabled:
-        blurred = gaussian_blur(img, factors["blur_sigma"], config.blur_kernel_size)
+        blurred = blur_stripe(img, factors["blur_sigma"], config.blur_kernel_size, stripe)
         img = torch.where(_bcast(factors["blur_on"]) > 0, blurred, img)
     return img
 
@@ -270,13 +301,15 @@ def noise_and_clip_stereo(
     noise_std_left: torch.Tensor,
     noise_std_right: torch.Tensor,
     enabled: bool,
+    stripe: Stripe | None = None,
 ) -> torch.Tensor:
     """Joint additive-noise + clamp epilogue over the (N,H,W,6) stereo tensor.
 
     One (N,H,W,6) normal draw with the per-view std broadcast per channel is
     distributionally the same as two independent per-view draws. The draw is
     bfloat16 and the arithmetic runs in bfloat16 for bfloat16 inputs (noise
-    std ~0.03 dwarfs bf16 rounding), float32 otherwise."""
+    std ~0.03 dwarfs bf16 rounding), float32 otherwise. On a ``stripe`` the
+    draw is the whole image's, cut to the stripe's rows."""
     dtype = stereo.dtype if stereo.dtype == torch.bfloat16 else torch.float32
     img = stereo.to(dtype)
     if enabled:
@@ -287,9 +320,12 @@ def noise_and_clip_stereo(
             ],
             dim=1,
         ).to(dtype)
+        shape = img.shape if stripe is None else (img.shape[0], stripe.height, *img.shape[2:])
         noise = torch.randn(
-            img.shape, generator=generator, device=img.device, dtype=torch.bfloat16
+            shape, generator=generator, device=img.device, dtype=torch.bfloat16
         )
+        if stripe is not None:
+            noise = noise[:, stripe.start:stripe.start + img.shape[1]]
         img = img + noise.to(dtype) * std6[:, None, None, :]
     return img.clamp(0.0, 1.0)
 
@@ -305,18 +341,21 @@ def split_views(
 
 
 def augment_stereo_batch(
-    generator: torch.Generator, stereo: torch.Tensor, config: AugmentConfig
+    generator: torch.Generator, stereo: torch.Tensor, config: AugmentConfig,
+    stripe: Stripe | None = None,
 ) -> torch.Tensor:
     """Augment the (N,H,W,6) float stereo concat in [0, 1]; left and right
-    views get independent factors, each view processed as a channel slice."""
+    views get independent factors, each view processed as a channel slice.
+    With ``stripe``, ``stereo`` is that height stripe of the images."""
     n = stereo.shape[0]
     f_left, f_right = split_views(sample_factors(generator, 2 * n, config), n)
-    left = _chain_pre_noise(stereo[..., :3], f_left, config)
-    right = _chain_pre_noise(stereo[..., 3:], f_right, config)
+    left = _chain_pre_noise(stereo[..., :3], f_left, config, stripe)
+    right = _chain_pre_noise(stereo[..., 3:], f_right, config, stripe)
     return noise_and_clip_stereo(
         generator,
         torch.cat([left, right], dim=-1),
         f_left["noise_std"],
         f_right["noise_std"],
         config.noise_std_max > 0.0,
+        stripe,
     )

@@ -8,6 +8,14 @@ a reduction kernel that reads the batch once (the XLA reduce of the JAX
 package's ``_pack_factors``). Factor sampling and the noise + clamp epilogue
 stay plain PyTorch, as they are plain XLA in the JAX package.
 
+On a height stripe (``augment_stereo_batch_fused(..., stripe=...)``) both
+kernels run on the stripe, unchanged: the gray means become sums,
+all-reduced over the spatial group and divided by the whole image's pixel
+count; with the blur on, K1 runs on the stripe extended by ``k // 2`` uint8
+rows of each neighbouring stripe and its output is cut back to the stripe,
+so its reflect padding applies only at the image's top and bottom. Factors
+and noise are drawn at the whole batch's shape (``ops/augment.py``).
+
 ``pointwise_chain`` and ``gray_means`` are ``torch.library`` custom ops
 (``sde_torch::``) with fakes: their CPU implementations are the plain
 versions (``pointwise_chain_plain``, ``gray_means_plain``), their CUDA
@@ -37,6 +45,7 @@ from .augment import (
     sample_factors,
     split_views,
 )
+from .halo import Stripe
 
 # Factors per view in a packed row: brightness, contrast, saturation, hue,
 # gamma, gray mean (of the brightness-adjusted view, for the contrast
@@ -274,16 +283,31 @@ def _(images_u8, brightness):
     return brightness.new_empty((2 * images_u8.shape[0],), dtype=torch.float32)
 
 
+def _stripe_means(means_fn, stripe: Stripe):
+    """``means_fn`` of a height stripe turned into the whole image's means:
+    the stripe's sums, summed over the spatial group, over the image's
+    pixel count."""
+
+    def means(images_u8: torch.Tensor, brightness: torch.Tensor) -> torch.Tensor:
+        h, w = images_u8.shape[1:3]
+        sums = stripe.spatial.sum_(means_fn(images_u8, brightness) * (h * w))
+        return sums / (stripe.height * w)
+
+    return means
+
+
 def augment_stereo_batch_fused(
     generator: torch.Generator,
     stereo_u8: torch.Tensor,
     config: AugmentConfig,
     out_dtype: torch.dtype = torch.float32,
+    stripe: Stripe | None = None,
 ) -> torch.Tensor:
     """Augment the (N, H, W, 6) uint8 stereo batch through the fused chain:
     sample, gray means and pack, chain (kernels on CUDA), then noise +
     clamp. Returns ``out_dtype`` in [0, 1]; with bf16 the noise epilogue
-    runs in bf16.
+    runs in bf16. With ``stripe``, ``stereo_u8`` is that height stripe of
+    the images (see the module docstring).
 
     ``config.impl``: "auto" dispatches on the tensor's device, "kernel"
     launches the kernels (raises on the CPU), "plain" runs the plain
@@ -296,13 +320,20 @@ def augment_stereo_batch_fused(
         "kernel": (gray_means_cuda, pointwise_chain_cuda),
         "plain": (gray_means_plain, pointwise_chain_plain),
     }[config.impl]
+    if stripe is not None:
+        means_fn = _stripe_means(means_fn, stripe)
     packed = _pack_factors(stereo_u8, factors, n, means_fn)
     blur_k = config.blur_kernel_size if config.blur_enabled else 0
-    out = chain(stereo_u8, packed, blur_k, out_dtype)
+    if stripe is not None and blur_k:
+        extended, top = stripe.spatial.extend(stereo_u8, blur_k // 2)
+        out = chain(extended, packed, blur_k, out_dtype)[:, top:top + stereo_u8.shape[1]]
+    else:
+        out = chain(stereo_u8, packed, blur_k, out_dtype)
     return noise_and_clip_stereo(
         generator,
         out,
         factors["noise_std"][:n],
         factors["noise_std"][n:],
         config.noise_std_max > 0.0,
+        stripe,
     ).to(out_dtype)

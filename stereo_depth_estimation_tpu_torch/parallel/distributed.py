@@ -14,9 +14,13 @@ runs one process per device, each a rank of one ``torch.distributed`` group:
   local ranks (``spawn``, never ``fork``: CUDA must not be initialised
   before the children start); ``--multihost`` makes each host process start
   its local ranks, global rank ``process_id * local + local_rank``.
-- ``MultihostBatcher`` gives each rank only its stripe of every global batch
-  (padded with flagged wrap rows), so no rank decodes the whole batch, and
-  ``stage_rows_multihost`` gives a rank its rows of a device-resident window.
+- ``MultihostBatcher`` gives each rank only its block of every global batch
+  (its data row's rows, padded with flagged wrap rows, cut to its height
+  stripe on a spatial mesh), so no rank decodes the whole batch, and
+  ``stage_rows_multihost`` gives a rank its block of a device-resident
+  window. The ranks of one data row decode the same samples, each in its
+  own process; the JAX package's host process decodes them once for its
+  devices.
 - ``run_process_farm`` and ``next_farm_port`` are copies of the JAX
   package's (numpy and subprocess only), for tests and ``chip_smoke.py``.
 
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, make_mesh
+from .mesh import Mesh, check_factors, make_mesh
 
 _TIMEOUT = timedelta(minutes=30)
 
@@ -109,9 +113,11 @@ def run_ranks(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    spatial: int = 1,
 ) -> Any:
     """Run ``fn(mesh, *args)`` on each rank of this process and return the
-    result of its first rank.
+    result of its first rank; ``mesh`` is ``make_mesh(device, spatial)``
+    over all the ranks.
 
     - ``multihost`` with no address flags: the environment describes the
       group, and this process is one rank of it (a launcher such as
@@ -127,7 +133,9 @@ def run_ranks(
 
     The backend is the device's (``default_backend``). ``fn`` and ``args``
     must pickle when ranks are spawned; the result of a spawned rank
-    crosses back through ``torch.save``."""
+    crosses back through ``torch.save``. A rank count that ``spatial`` does
+    not divide raises ``ValueError`` before any rank starts, where this
+    process knows the count."""
     device = torch.device(device)
     address, world, first = coordinator_address, local_ranks, 0
     if multihost and (address, num_processes, process_id) == (None, None, None):
@@ -138,9 +146,7 @@ def run_ranks(
             )
         if device.type == "cuda":
             device = torch.device("cuda", local_rank())
-        return _run_here(fn, args, device, None, None, None)
-    if not multihost and local_ranks == 1:
-        return fn(Mesh(device), *args)
+        return _run_here(fn, args, device, None, None, None, spatial)
     if multihost:
         if address is None or num_processes is None or process_id is None:
             raise ValueError(
@@ -148,34 +154,38 @@ def run_ranks(
                 "give all three, or none to read the environment"
             )
         world, first = num_processes * local_ranks, process_id * local_ranks
-        if local_ranks == 1:
-            return _run_here(fn, args, device, address, world, first)
+    check_factors(world, spatial)
+    if not multihost and local_ranks == 1:
+        return fn(Mesh(device), *args)
+    if multihost and local_ranks == 1:
+        return _run_here(fn, args, device, address, world, first, spatial)
     workdir = Path(tempfile.mkdtemp(prefix="ranks-"))
     try:
         result_path = workdir / "result.pt"
         torch.multiprocessing.start_processes(
             _spawned_rank, nprocs=local_ranks, join=True, start_method="spawn",
             args=(fn, args, device.type, address or f"file://{workdir / 'rendezvous'}",
-                  world, first, result_path, max(1, (os.cpu_count() or 1) // local_ranks)),
+                  world, first, spatial, result_path,
+                  max(1, (os.cpu_count() or 1) // local_ranks)),
         )
         return torch.load(result_path, weights_only=False)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def _run_here(fn, args, device, address, world, rank) -> Any:
+def _run_here(fn, args, device, address, world, rank, spatial) -> Any:
     """``fn`` in this process as one rank; a group this call creates is
     destroyed after it."""
     created = initialize_multihost(address, world, rank, device=device)
     try:
-        return fn(make_mesh(device), *args)
+        return fn(make_mesh(device, spatial), *args)
     finally:
         if created:
             dist.destroy_process_group()
 
 
-def _spawned_rank(local, fn, args, device_type, address, world, first, result_path,
-                  cpu_threads) -> None:
+def _spawned_rank(local, fn, args, device_type, address, world, first, spatial,
+                  result_path, cpu_threads) -> None:
     """A spawned rank (``local`` of this process's): ``fn`` on
     ``cuda:local`` or the CPU (``cpu_threads`` threads: the host's cores
     are shared between its ranks); the first saves its result for the
@@ -184,22 +194,25 @@ def _spawned_rank(local, fn, args, device_type, address, world, first, result_pa
     device = torch.device("cuda", local) if device_type == "cuda" else torch.device("cpu")
     if device.type == "cpu":
         torch.set_num_threads(cpu_threads)
-    result = _run_here(fn, args, device, address, world, first + local)
+    result = _run_here(fn, args, device, address, world, first + local, spatial)
     if local == 0:
         torch.save(result, result_path)
 
 
 class MultihostBatcher:
     """Per-rank feeding of a global batch: callable like a fetch function,
-    it takes the GLOBAL index list of a batch and returns this rank's stripe
+    it takes the GLOBAL index list of a batch and returns this rank's block
     as a host batch.
 
     1. pad the index list (wrapping) to ``pad_to`` and to a multiple of the
-       world size; padded rows get ``valid_mask`` False and so contribute
+       data rows; padded rows get ``valid_mask`` False and so contribute
        nothing to the masked loss and metrics;
-    2. fetch only this rank's stripe, each distinct sample once (wrapped
-       rows repeat samples);
-    3. add the stripe's rank-1 ``valid_mask`` row flags.
+    2. fetch only this rank's data row's rows, each distinct sample once
+       (wrapped rows repeat samples), and cut them to its height stripe;
+    3. add the rows' rank-1 ``valid_mask`` flags (the JAX batcher builds a
+       full-rank mask on a spatial mesh only because a global array with
+       the spatial axis cannot carry rank-1 flags; the port has no such
+       array).
     """
 
     def __init__(
@@ -216,15 +229,15 @@ class MultihostBatcher:
         global_indices = np.asarray(global_indices)
         n = len(global_indices)
         target_n = max(n, self.pad_to or 0)
-        target_n += (-target_n) % self.mesh.world_size
+        target_n += (-target_n) % self.mesh.data_size
         # Modular tiling, not a slice: the pad can exceed n.
         padded = global_indices[np.arange(target_n) % n]
         is_real = np.ones(len(padded), bool)
         is_real[n:] = False
-        stripe = len(padded) // self.mesh.world_size
-        lo = self.mesh.rank * stripe
+        stripe = len(padded) // self.mesh.data_size
+        lo = self.mesh.data_index * stripe
         unique, inverse = np.unique(padded[lo : lo + stripe], return_inverse=True)
-        fetched = self.fetch(unique)
+        fetched = self.mesh.stripe_of(self.fetch(unique))
         local = {k: np.asarray(v)[inverse] for k, v in fetched.items()}
         local["valid_mask"] = is_real[lo : lo + stripe]
         return local
@@ -235,17 +248,19 @@ def stage_rows_multihost(
     indices: np.ndarray,
     mesh: Mesh,
 ) -> dict[str, np.ndarray]:
-    """This rank's rows of a window of GLOBAL store rows: rank r fetches rows
-    ``[r * local_n, (r + 1) * local_n)`` of ``indices``, the rows JAX data
-    shard r holds. ``indices`` must be the same on every rank (callers derive
-    it from the shared seed) and divide over the ranks."""
+    """This rank's block of a window of GLOBAL store rows: data row d fetches
+    rows ``[d * local_n, (d + 1) * local_n)`` of ``indices``, the rows JAX
+    data shard d holds, and each rank keeps its height stripe of them.
+    ``indices`` must be the same on every rank (callers derive it from the
+    shared seed) and divide over the data rows."""
     indices = np.asarray(indices)
-    if len(indices) % mesh.world_size:
+    if len(indices) % mesh.data_size:
         raise ValueError(
-            f"window of {len(indices)} rows does not divide over {mesh.world_size} ranks"
+            f"window of {len(indices)} rows does not divide over {mesh.data_size} data rows"
         )
-    local_n = len(indices) // mesh.world_size
-    return fetch(indices[mesh.rank * local_n : (mesh.rank + 1) * local_n])
+    local_n = len(indices) // mesh.data_size
+    d = mesh.data_index
+    return mesh.stripe_of(fetch(indices[d * local_n : (d + 1) * local_n]))
 
 
 # --------------------------------------------------------------------------

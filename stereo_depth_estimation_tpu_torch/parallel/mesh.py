@@ -1,4 +1,5 @@
-"""The rank group, and static-shape batch padding with rank-1 row flags.
+"""The rank group, height blocks, and static-shape batch padding with rank-1
+row flags.
 
 Counterpart of ``stereo_depth_estimation_tpu/parallel/mesh.py``. The JAX
 package runs one process per host over a mesh of that host's devices; the
@@ -6,20 +7,30 @@ port runs one process per device, a rank of a ``torch.distributed`` group.
 ``Mesh`` describes that group as one rank sees it (world size, rank, device,
 group), and ``make_mesh`` is the counterpart of the JAX ``make_mesh``.
 
+With ``spatial`` S > 1 the ranks form the JAX package's 2-D ``(data,
+spatial)`` mesh: rank r is data row r // S and spatial block r % S (JAX
+reshapes the devices to (n // S, S)). Batches shard over the data rows and
+image height over the S ranks of a row, as JAX's ``P(data, spatial)``; rank-1
+row flags shard over the data rows only. Height is cut into blocks of 16 rows
+and spatial rank s takes a contiguous run of them, as even as possible
+(``height_blocks``: 240 rows over 2 ranks are 128 and 112), so every pool
+level has an even local height. JAX splits height evenly and pads an uneven
+shard instead; the model computes the same either way. The S ranks of a row
+share a ``SpatialGroup`` for the halo exchanges (``ops/halo.py``).
+
 - ``pad_batch_to``: the epoch's tail batch is padded up to the static batch
   size with wrap-around rows whose ``valid_mask`` flag is False: BatchNorm
   sees plausible images, and the loss and every metric sum ignore those rows
   (``train_step._targets_and_mask`` ANDs the flags with ``target > 0``).
   Every batch carries the flags, so every batch has one structure.
-- ``pad_batch_for_mesh`` pads the same way to a multiple of the world size,
-  ``shard_batch_to_mesh`` then puts this rank's stripe on its device, and
+- ``pad_batch_for_mesh`` pads the same way to a multiple of the data rows,
+  ``shard_batch_to_mesh`` then puts this rank's block on its device, and
   ``replicate_to_mesh`` broadcasts rank 0's weights, buffers and AdamW state
   after a checkpoint load.
 
 ``batch_sharding`` and ``replicated_sharding`` have no counterpart: a rank
 holds its stripe of a batch as a plain tensor and its own full copy of the
-weights, so there is no sharding to name. Height sharding (the JAX
-``spatial`` axis) is not ported (ROADMAP Queue 1 item 11).
+weights, so there is no sharding to name.
 """
 
 from __future__ import annotations
@@ -31,20 +42,85 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.halo import SpatialGroup
+
+# Height is split in blocks of this many rows: the model's four 2x2 pools
+# need a local height divisible by 16.
+HEIGHT_BLOCK = 16
+
+
+def check_factors(world_size: int, spatial: int) -> None:
+    """Raise ``ValueError`` where ``spatial`` does not divide the ranks, as
+    the JAX ``make_mesh`` does for its devices."""
+    if spatial > 1 and world_size % spatial:
+        raise ValueError(f"{world_size} rank(s) do not factor into spatial={spatial}")
+
+
+def height_blocks(height: int, spatial: int) -> list[tuple[int, int]]:
+    """The (start, stop) rows of each spatial rank's stripe: whole blocks of
+    HEIGHT_BLOCK rows, the first ``blocks % spatial`` ranks one block more."""
+    blocks, rest = divmod(height, HEIGHT_BLOCK)
+    if rest or blocks < spatial:
+        raise ValueError(
+            f"height {height} does not split over spatial={spatial}: it must be a "
+            f"multiple of {HEIGHT_BLOCK} with at least {spatial} blocks of {HEIGHT_BLOCK} rows"
+        )
+    base, extra = divmod(blocks, spatial)
+    bounds, start = [], 0
+    for s in range(spatial):
+        stop = start + HEIGHT_BLOCK * (base + (s < extra))
+        bounds.append((start, stop))
+        start = stop
+    return bounds
+
 
 @dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the data-parallel group: every rank holds the
-    whole model and its stripe of each batch."""
+    """One rank's view of the mesh: every rank holds the whole model and its
+    block (rows x height stripe) of each batch."""
 
     device: torch.device
     world_size: int = 1
     rank: int = 0
     group: Any = None  # the torch.distributed group when world_size > 1
+    spatial: int = 1  # ranks per data row, each a height stripe
+    spatial_group: SpatialGroup | None = None  # the row's ranks when spatial > 1
 
     @property
     def distributed(self) -> bool:
         return self.world_size > 1
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    def height_block(self, height: int) -> tuple[int, int]:
+        """(start, stop) of this rank's stripe of images ``height`` rows high."""
+        if self.spatial == 1:
+            return 0, height
+        return height_blocks(height, self.spatial)[self.spatial_index]
+
+    def stripe_of(self, batch: dict[str, Any]) -> dict[str, Any]:
+        """Each array of ``batch`` with three or more dims (images, targets,
+        full-rank masks: height at dim 1) cut to this rank's stripe; rank-1
+        row flags as they are."""
+        if self.spatial == 1:
+            return batch
+        out = {}
+        for key, value in batch.items():
+            if np.ndim(value) >= 3:
+                start, stop = self.height_block(value.shape[1])
+                value = value[:, start:stop]
+            out[key] = value
+        return out
 
     def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
         """Sum ``tensor`` over the ranks, in place; a no-op on one rank."""
@@ -59,13 +135,26 @@ class Mesh:
             self.all_reduce(torch.zeros(1, device=self.device))
 
 
-def make_mesh(device: torch.device) -> Mesh:
+def make_mesh(device: torch.device, spatial: int = 1) -> Mesh:
     """The mesh of this process: the initialised ``torch.distributed`` group,
-    or one rank when there is none."""
+    or one rank when there is none; with ``spatial`` > 1 a (world / spatial,
+    spatial) mesh. Every rank creates every data row's group, in the same
+    order (``dist.new_group`` is a collective of the world)."""
+    device = torch.device(device)
     if not (dist.is_available() and dist.is_initialized()):
-        return Mesh(torch.device(device))
-    return Mesh(torch.device(device), dist.get_world_size(), dist.get_rank(),
-                dist.group.WORLD)
+        check_factors(1, spatial)
+        return Mesh(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    check_factors(world, spatial)
+    if spatial <= 1:
+        return Mesh(device, world, rank, dist.group.WORLD)
+    row = None
+    for first in range(0, world, spatial):
+        group = dist.new_group(list(range(first, first + spatial)))
+        if first == rank - rank % spatial:
+            row = group
+    return Mesh(device, world, rank, dist.group.WORLD, spatial,
+                SpatialGroup(row, rank % spatial, spatial))
 
 
 def _pad_batch_rows(batch: dict[str, Any], pad: int) -> dict[str, Any]:
@@ -114,14 +203,17 @@ def pad_batch_to(batch: dict[str, Any], batch_size: int) -> dict[str, Any]:
 
 
 def shard_batch_to_mesh(batch: dict[str, Any], mesh: Mesh) -> dict[str, torch.Tensor]:
-    """This rank's stripe of a global host batch, on its device. A batch
-    with an indivisible leading axis is padded first (``pad_batch_for_mesh``)."""
-    batch = pad_batch_for_mesh(batch, mesh.world_size)
-    stripe = int(next(iter(batch.values())).shape[0]) // mesh.world_size
-    rows = slice(mesh.rank * stripe, (mesh.rank + 1) * stripe)
+    """This rank's block of a global host batch, on its device: its data
+    row's rows, cut to its height stripe on a spatial mesh. A batch with a
+    leading axis the data rows do not divide is padded first
+    (``pad_batch_for_mesh``)."""
+    batch = pad_batch_for_mesh(batch, mesh.data_size)
+    stripe = int(next(iter(batch.values())).shape[0]) // mesh.data_size
+    rows = slice(mesh.data_index * stripe, (mesh.data_index + 1) * stripe)
+    block = mesh.stripe_of({k: np.asarray(v)[rows] for k, v in batch.items()})
     return {
-        k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[rows])).to(mesh.device)
-        for k, v in batch.items()
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
+        for k, v in block.items()
     }
 
 

@@ -18,9 +18,24 @@ model's BatchNorm statistics are global (``MeshBatchNorm2d``); the loss is the
 global masked mean, so each rank scales its NLL sum by world / global valid
 count and ``DistributedDataParallel``'s mean of the gradients is the global
 gradient; the returned ``LossStats`` are global sums; and the no-op gate
-tests the global valid count, so the ranks' weights never part. Each rank
-draws its augmentation from its own generator, seeded from (seed, rank). On
-one rank none of this runs: no wrapper, no collective.
+tests the global valid count, so the ranks' weights never part. Each data
+row draws its augmentation from its own generator, seeded from (seed, data
+row). On one rank none of this runs: no wrapper, no collective.
+
+On a spatial mesh (``Mesh.spatial`` > 1) a rank's batch is its data row's
+rows cut to its height stripe, and the model exchanges halo rows around
+every 3x3 convolution (``HaloConv2d``). The same scaling still gives the
+global masked mean: with F = sum over ranks of (local NLL sum * world /
+global count) = world * loss, each rank's backward (whose BatchNorm and halo
+collectives carry the cross-rank terms) gives the part of dF/dw that flows
+through its copy of the weights, the parts sum to dF/dw, and
+``DistributedDataParallel``'s mean over the world divides by world. The
+LossStats sum over all ranks count each pixel once, as each pixel lies in
+one stripe. The augmentation runs on the stripe (``ops/augment_cuda.py``)
+with the data row's generator, so all stripes of a row draw the same
+factors and noise; a 1 x S mesh draws what one rank draws. Predict cuts its
+images into stripes and gathers the stripes' outputs back over the spatial
+group.
 
 Compiled (``create_train_state(..., compile=CompileOptions(...))``, the
 trainer's ``--compile``): the train and eval steps run the model through
@@ -45,6 +60,7 @@ from torch import nn
 from ..models.unet import StereoUNet
 from ..ops.augment import AugmentConfig, augment_stereo_batch
 from ..ops.augment_cuda import augment_stereo_batch_fused
+from ..ops.halo import Stripe
 from ..ops.loss import LossStats, heteroscedastic_laplace_nll
 from .mesh import Mesh
 
@@ -159,11 +175,13 @@ def make_adamw(
 
 
 def rank_seed(seed: int, mesh: Mesh | None) -> int:
-    """The generator seed of this rank: ``seed`` itself on one rank, else
-    one drawn from (seed, rank), so ranks draw different augmentations."""
-    if mesh is None or not mesh.distributed:
+    """The generator seed of this rank: ``seed`` itself with one data row,
+    else one drawn from (seed, data row), so data rows draw different
+    augmentations and the height stripes of a row the same (with one stripe
+    a row, the data row is the rank)."""
+    if mesh is None or mesh.data_size == 1:
         return seed
-    return int(np.random.SeedSequence((seed, mesh.rank)).generate_state(1)[0])
+    return int(np.random.SeedSequence((seed, mesh.data_index)).generate_state(1)[0])
 
 
 def create_train_state(
@@ -247,7 +265,8 @@ def _set_learning_rate(optimizer: torch.optim.AdamW) -> None:
 
 
 def _augmented_inputs(
-    state: TrainState, raw: torch.Tensor, augment_config: AugmentConfig | None
+    state: TrainState, raw: torch.Tensor, augment_config: AugmentConfig | None,
+    stripe: Stripe | None = None,
 ) -> torch.Tensor:
     if augment_config is None:
         return _prepare_input(raw)
@@ -255,25 +274,40 @@ def _augmented_inputs(
         # The fused chain reads the uint8 batch and writes the model's
         # compute dtype (bf16 halves its writes); on CUDA it is the kernel.
         return augment_stereo_batch_fused(
-            state.generator, raw, augment_config, out_dtype=state.model.compute_dtype
+            state.generator, raw, augment_config, out_dtype=state.model.compute_dtype,
+            stripe=stripe,
         )
-    return augment_stereo_batch(state.generator, _prepare_input(raw), augment_config)
+    return augment_stereo_batch(state.generator, _prepare_input(raw), augment_config, stripe)
+
+
+def _stripe(mesh: Mesh | None, height: int | None) -> Stripe | None:
+    """This rank's ``Stripe`` of images ``height`` rows high on a spatial
+    mesh, else None."""
+    if mesh is None or mesh.spatial == 1:
+        return None
+    if height is None:
+        raise ValueError("the augmentation on a spatial mesh needs the images' height")
+    start, _ = mesh.height_block(height)
+    return Stripe(mesh.spatial_group, start, height)
 
 
 def make_train_step(
     augment_config: AugmentConfig | None = None,
     mesh: Mesh | None = None,
+    height: int | None = None,
 ) -> Callable[[TrainState, Batch], tuple[TrainState, LossStats]]:
     """Train step on a batch {input (N,H,W,6) u8/f32, target (N,H,W),
     optional valid_mask}: augment -> forward -> loss -> backward -> AdamW.
-    On a ``mesh`` of several ranks the batch is this rank's stripe and the
+    On a ``mesh`` of several ranks the batch is this rank's block and the
     state comes from ``create_train_state(..., mesh=mesh)``; the returned
-    ``LossStats`` are the global batch's."""
+    ``LossStats`` are the global batch's. On a spatial mesh the augmentation
+    needs the whole images' ``height``."""
     distributed = mesh is not None and mesh.distributed
+    stripe = None if augment_config is None else _stripe(mesh, height)
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, LossStats]:
         model, optimizer = state.model, state.optimizer
-        inputs = _augmented_inputs(state, batch["input"], augment_config)
+        inputs = _augmented_inputs(state, batch["input"], augment_config, stripe)
         target, mask = _targets_and_mask(batch)
 
         # Zero-valid-batch no-op, decided on the device without a host sync:
@@ -400,19 +434,32 @@ def make_eval_step(mesh: Mesh | None = None) -> Callable[[TrainState, Batch], Lo
 
 
 def make_predict_fn(
-    model: StereoUNet,
+    model: StereoUNet, mesh: Mesh | None = None,
 ) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
     """Inference: input NHWC (uint8 or float) -> (disparity, logvar), each
-    (N, H, W) float32, with running BN stats."""
+    (N, H, W) float32, with running BN stats. On a spatial ``mesh`` every
+    rank of a data row calls it with the same whole images: each runs the
+    model on its stripe, and the stripes are gathered with one all-reduce
+    over the spatial group (each rank writes its rows of a zero buffer), so
+    every rank returns the whole images."""
+    spatial = mesh is not None and mesh.spatial > 1
 
     @torch.inference_mode()
     def predict(inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        start, stop = mesh.height_block(inputs.shape[1]) if spatial else (0, inputs.shape[1])
         was_training = model.training
         model.eval()
         try:
-            disp, logvar = model(_prepare_input(inputs), return_uncertainty=True)
+            disp, logvar = model(_prepare_input(inputs[:, start:stop]),
+                                 return_uncertainty=True)
         finally:
             model.train(was_training)
-        return disp[..., 0], logvar[..., 0]
+        if not spatial:
+            return disp[..., 0], logvar[..., 0]
+        whole = disp.new_zeros((2, inputs.shape[0], inputs.shape[1], inputs.shape[2]))
+        whole[0, :, start:stop] = disp[..., 0]
+        whole[1, :, start:stop] = logvar[..., 0]
+        mesh.spatial_group.sum_(whole)
+        return whole[0], whole[1]
 
     return predict

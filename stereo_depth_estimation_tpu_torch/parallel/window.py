@@ -20,11 +20,15 @@ permutation differs from the JAX package's ``jax.random`` one; the window
 membership is the same.
 
 On a mesh of several ranks, the set is padded with wrapped rows to a
-multiple of the world size and every window divides over the ranks: rank r
-stages rows ``[r * local_n, (r + 1) * local_n)`` of each window, the rows
-JAX data shard r holds, and permutes them locally with its own generator
-into batches of ``batch_size / world`` rows. The byte budget is per device,
-so the whole plan's budget scales with the world size.
+multiple of the data rows and every window divides over them: the ranks of
+data row d stage rows ``[d * local_n, (d + 1) * local_n)`` of each window,
+the rows JAX data shard d holds, each rank its height stripe of them on a
+spatial mesh (JAX's ``P(data, spatial)`` window sharding), and permute them
+locally into batches of ``batch_size / data rows`` rows. The permutation
+comes from the train state's generator, which the ranks of a data row share
+(``train_step.rank_seed``), so they gather the same rows. The byte budget is
+per device, so the whole plan's budget scales with the world size, as the
+JAX package's scales with the mesh's devices.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from .train_step import Batch, DeviceDataTrainStep, TrainState
 
 @dataclass(frozen=True)
 class WindowPlan:
-    n: int                # dataset samples, padded to the world size
+    n: int                # dataset samples, padded to the data rows
     batch_size: int       # global batch
     window_samples: int   # samples staged per window (a multiple of batch_size)
     num_windows: int
@@ -122,13 +126,13 @@ class HBMWindowLoader:
         self._seed = seed
         self._n = n
         self._mesh = mesh if mesh is not None else Mesh(device)
-        world = self._mesh.world_size
-        # Pad the sample count to the world size with wrapped rows, so that
-        # windows divide over the ranks; the <= world-1 repeated rows shift
+        rows = self._mesh.data_size
+        # Pad the sample count to the data rows with wrapped rows, so that
+        # windows divide over them; the <= rows-1 repeated rows shift
         # in-window sampling odds marginally.
-        padded_n = n + (-n) % world
-        self.plan = plan_windows(padded_n, batch_size, bytes_per_sample, budget_bytes, world)
-        self.local_batch = batch_size // world
+        padded_n = n + (-n) % rows
+        self.plan = plan_windows(padded_n, batch_size, bytes_per_sample, budget_bytes, rows)
+        self.local_batch = batch_size // rows
         self._pinned_window: tuple[torch.Tensor, torch.Tensor] | None = None
         if self.plan.pinned:
             self._pinned_window = self._stage(np.arange(padded_n) % n)
@@ -136,7 +140,7 @@ class HBMWindowLoader:
     def _stage(
         self, indices: np.ndarray, copy_stream=None, consumer_stream=None
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """This rank's rows of the window ``indices``, on the device."""
+        """This rank's block of the window ``indices``, on the device."""
         host = stage_rows_multihost(self._fetch, indices, self._mesh)
         staged = to_device(host, self._device, copy_stream, consumer_stream)
         return staged["input"], staged["target"]
@@ -232,8 +236,8 @@ class HBMWindowLoader:
         """One item per train step of the epoch: the window's
         ``DeviceDataTrainStep`` over ``step_fn``, to be called with the
         train state (``runner(state) -> step_fn(state, gathered batch)``).
-        Each rank gathers ``batch_size / world`` rows a step from its rows of
-        the window."""
+        Each rank gathers ``batch_size / data rows`` rows a step from its
+        block of the window."""
         for images, targets in self.epoch_windows(epoch):
             runner = DeviceDataTrainStep(images, targets, self.local_batch, step_fn)
             for _ in range(self.plan.steps_per_window):

@@ -1,10 +1,8 @@
 """Training configuration: the JAX trainer's dataclass, flags and defaults.
 
 Counterpart of ``stereo_depth_estimation_tpu/training/config.py``: the same
-field names, flags and defaults, so a JAX command line parses here. A flag
-whose mechanism the port does not have yet (spatial sharding) is parsed all
-the same; the trainer raises on a value that would change what runs
-(``trainer.check_supported``).
+field names, flags and defaults, so a JAX command line parses here and runs
+the same training.
 """
 
 from __future__ import annotations
@@ -162,7 +160,8 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
         help="Data-parallel ranks on this host, one GPU each (0 = all visible "
              "GPUs; one rank on the CPU). More than the visible GPUs raises.")
     add("--spatial-devices", type=int, default=defaults.spatial_devices,
-        help="Not ported (height sharding): only 1 is accepted.")
+        help="Shard image height over this many ranks of a (ranks / N, N) mesh "
+             "(with --mesh-devices or --multihost); it must divide the rank count.")
     add("--compute-dtype", type=str, default=defaults.compute_dtype,
         choices=("bfloat16", "float32"), help="Network compute dtype.")
     add("--packed-cache-root", type=str, default=None,

@@ -17,11 +17,15 @@ or fails loudly (``check_supported``).
 
 ``--mesh-devices N`` trains data-parallel on N local ranks, one GPU each;
 ``--multihost`` joins ranks across hosts (``parallel/distributed.py``).
-``--batch-size`` stays the global batch. Every rank runs the same epochs on
-its stripe of each batch; only process 0 builds the packed caches, tracks
-the run, writes previews and saves checkpoints (the others get a
-``_NullRun``), and a barrier after each epoch's saves keeps the ranks
-together.
+``--spatial-devices S`` makes the ranks a (ranks / S, S) mesh that also
+shards image height, as the JAX trainer's ``(data, spatial)`` mesh does
+(``parallel/mesh.py``); a rank count that S does not divide raises
+``ValueError``. ``--batch-size`` stays the global batch. Every rank runs the
+same epochs on its block of each batch; only process 0 builds the packed
+caches, tracks the run, writes previews and saves checkpoints (the others
+get a ``_NullRun``), and a barrier after each epoch's saves keeps the ranks
+together. On a spatial mesh the ranks of data row 0 compute the previews
+together (each its stripe) and rank 0 writes them from whole images.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from .._device import local_rank_count, raise_refused, resolve_cli_device, unported_refusals
+from .._device import local_rank_count, resolve_cli_device
 from ..data.dataset import StereoSampleLoader
 from ..data.packed_cache import PackedCache, build_packed_cache, samples_fingerprint
 from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
@@ -47,7 +51,7 @@ from ..ops.augment import AugmentConfig
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
 from ..parallel.aot_cache import CompileCache, cache_digest, resolve_aot_dir
 from ..parallel.distributed import MultihostBatcher, is_main_process, run_ranks
-from ..parallel.mesh import Mesh, pad_batch_to, replicate_to_mesh
+from ..parallel.mesh import Mesh, check_factors, pad_batch_to, replicate_to_mesh
 from ..parallel.train_step import (
     CompileOptions,
     DeviceDataTrainStep,
@@ -81,11 +85,15 @@ def _env_rendezvous(cfg: TrainConfig) -> bool:
 
 
 def check_supported(cfg: TrainConfig, device: torch.device) -> None:
-    """Raise on a flag value whose mechanism the port does not have yet,
-    naming the ROADMAP item that ports it, and on more ranks than ``device``'s
-    kind has cards."""
-    local_rank_count(device, cfg.mesh_devices, env_rendezvous=_env_rendezvous(cfg))
-    raise_refused(unported_refusals(spatial_devices=cfg.spatial_devices))
+    """Raise before any rank starts on more ranks than ``device``'s kind has
+    cards, and on a rank count that ``--spatial-devices`` does not divide
+    where this process knows the count (with the environment's rendezvous
+    the mesh raises once the group is joined)."""
+    env = _env_rendezvous(cfg)
+    local = local_rank_count(device, cfg.mesh_devices, env_rendezvous=env)
+    if not env:
+        processes = (cfg.num_processes or 1) if cfg.multihost else 1
+        check_factors(local * processes, cfg.spatial_devices)
 
 
 def compile_options_from(cfg: TrainConfig) -> CompileOptions | None:
@@ -107,7 +115,7 @@ def compile_cache_from(cfg: TrainConfig, mesh: Mesh, verbose: bool) -> CompileCa
         "compile_mode": cfg.compile_mode, "compile_backend": cfg.compile_backend,
         "base_channels": cfg.base_channels, "compute_dtype": cfg.compute_dtype,
         "batch_size": cfg.batch_size, "height": cfg.height, "width": cfg.width,
-        "ranks": mesh.world_size, "rank": mesh.rank,
+        "ranks": mesh.world_size, "rank": mesh.rank, "spatial": mesh.spatial,
     }
     return CompileCache(aot_dir, cache_digest(setting, mesh.device), verbose=verbose)
 
@@ -452,6 +460,7 @@ def train(cfg: TrainConfig) -> dict[str, Any]:
         train_rank, (cfg, local == 1), device=device, local_ranks=local,
         multihost=cfg.multihost, coordinator_address=cfg.coordinator_address,
         num_processes=cfg.num_processes, process_id=cfg.process_id,
+        spatial=cfg.spatial_devices,
     )
 
 
@@ -463,7 +472,8 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
     main_process = is_main_process()
     say = print if main_process else (lambda *args, **kwargs: None)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    say(f"Using {mesh.world_size} device(s), one rank each; rank 0 on {device} ({name})")
+    say(f"Using {mesh.world_size} device(s), one rank each, as {mesh.data_size} data row(s) "
+        f"x {mesh.spatial} height stripe(s); rank 0 on {device} ({name})")
 
     all_samples = discover_samples(cfg.dataset_root)
     if cfg.max_samples > 0:
@@ -546,6 +556,7 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
         device=device,
         generator=torch.Generator().manual_seed(cfg.seed),
         bn_group=mesh.group if mesh.distributed else None,
+        spatial_group=mesh.spatial_group,
     )
     steps_per_epoch = (
         windowed.plan.steps_per_epoch
@@ -577,16 +588,16 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
         resume_carry = dict((meta.get("metrics") or {}).get("resume_carry", {}))
         if cfg.lr_schedule != "constant" and main_process:
             _warn_on_horizon_drift(cfg, meta, resume_carry, steps_per_epoch)
-        if mesh.rank > 0:
-            # The checkpoint holds rank 0's generator; the other ranks draw
-            # a stream of their own again, from (seed, rank, step).
+        if mesh.data_index > 0:
+            # The checkpoint holds data row 0's generator; the other rows
+            # draw a stream of their own again, from (seed, row, step).
             state.generator.manual_seed(int(np.random.SeedSequence(
-                (cfg.seed, mesh.rank, state.step)).generate_state(1)[0]))
+                (cfg.seed, mesh.data_index, state.step)).generate_state(1)[0]))
         say(f"Resumed from {cfg.resume} at epoch {start_epoch - 1}.")
     if cfg.init_checkpoint or cfg.resume:
         state = replicate_to_mesh(state, mesh)
 
-    train_step = make_train_step(augment_config_from(cfg), mesh)
+    train_step = make_train_step(augment_config_from(cfg), mesh, cfg.height)
     eval_step = make_eval_step(mesh)
     compile_cache = compile_cache_from(cfg, mesh, verbose=main_process)
     if compile_cache is not None:
@@ -596,10 +607,13 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
         compile_cache.load()
         train_step = compile_cache.wrap(train_step, "train step")
         eval_step = compile_cache.wrap(eval_step, "eval step")
-    predict = make_predict_fn(model)  # previews stay eager: a few pairs an epoch
+    # Previews stay eager (a few pairs an epoch). The ranks of data row 0
+    # compute them: on one stripe a row that is rank 0 alone.
+    predict = make_predict_fn(model, mesh)
+    previews_here = preview_count > 0 and mesh.data_index == 0
     if mesh.distributed:
-        # Each rank fetches only its stripe of every global batch, padded
-        # to the static batch size and the world size with flagged rows.
+        # Each rank fetches only its block of every global batch, padded
+        # to the static batch size and the data rows with flagged rows.
         train_fetch = MultihostBatcher(train_fetch, mesh, pad_to=cfg.batch_size)
         if val_fetch is not None:
             val_fetch = MultihostBatcher(val_fetch, mesh, pad_to=cfg.batch_size)
@@ -695,10 +709,11 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
             if compile_cache is not None:
                 compile_cache.finish()
 
-            if main_process and preview_count > 0:
+            if previews_here:
                 previews_dir = preview_root / f"epoch_{epoch:04d}"
                 log_epoch_previews(
-                    predict, cfg, preview_source[:preview_count], previews_dir, device
+                    predict, cfg, preview_source[:preview_count], previews_dir, device,
+                    write=main_process,
                 )
                 run.log_artifacts(previews_dir, artifact_path=f"previews/epoch_{epoch:04d}")
 
@@ -781,18 +796,23 @@ def log_epoch_previews(
     samples,
     previews_dir: Path,
     device: torch.device,
+    write: bool = True,
 ) -> int:
+    """Predict ``samples`` and, with ``write``, save their montages (on a
+    spatial mesh every rank of the row predicts, one rank writes)."""
     loader = StereoSampleLoader(
         samples,
         image_size=(cfg.height, cfg.width),
         cache_root=cfg.cache_root,
         require_cache=cfg.require_cache,
     )
-    previews_dir.mkdir(parents=True, exist_ok=True)
     items = [loader[i] for i in range(len(loader))]
     inputs = np.stack([it["input"] for it in items])
     targets = np.stack([it["target"] for it in items])
     disp, _ = predict(torch.from_numpy(inputs).to(device))
+    if not write:
+        return 0
+    previews_dir.mkdir(parents=True, exist_ok=True)
     disp = disp.cpu().numpy()
     for i in range(inputs.shape[0]):
         save_preview_montage(

@@ -107,13 +107,14 @@ def test_port_imports_with_cv2_blocked() -> None:
     _import_all_with_blocked(["cv2"])
 
 
-# What the port may call of torch.distributed: set-up, queries, and the two
-# collectives gloo runs on CUDA tensors, so that one code path serves NCCL,
-# gloo on CUDA and gloo on the CPU.
+# What the port may call of torch.distributed: set-up (the spatial mesh's
+# row groups too), queries, and the two collectives gloo runs on CUDA
+# tensors, so that one code path serves NCCL, gloo on CUDA and gloo on the
+# CPU.
 DIST_ALLOWED = {
     "all_reduce", "broadcast", "init_process_group", "destroy_process_group",
     "is_available", "is_initialized", "get_backend", "get_rank", "get_world_size",
-    "group",
+    "group", "new_group",
 }
 
 
@@ -135,6 +136,10 @@ def test_collectives_are_all_reduce_and_broadcast_only() -> None:
                 used.setdefault(node.attr, set()).add(path.name)
     assert {"all_reduce", "broadcast", "init_process_group"} <= used.keys()
     assert used.keys() <= DIST_ALLOWED, {k: v for k, v in used.items() if k not in DIST_ALLOWED}
+    # The halo exchange is held to the rule too: it is all-reduces only.
+    assert PORT / "ops" / "halo.py" in PORT_FILES
+    assert {k for k, files in used.items() if "halo.py" in files} == {"all_reduce"}
+    assert "new_group" in used and used["new_group"] == {"mesh.py"}
 
 
 def test_asking_for_cuda_without_it_raises() -> None:

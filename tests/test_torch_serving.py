@@ -293,13 +293,34 @@ def _cli_run(root: Path, out: Path, cli: str, *argv: str) -> dict:
 
 
 @pytest.mark.parametrize("cli,argv", [
-    # Two ranks run since the data-parallel slice; height sharding does not.
+    # Height sharding runs since its slice: on two ranks a 1 x 2 mesh scores
+    # what the JAX CLI's (data, spatial) mesh and one rank score; one rank
+    # does not factor into two stripes and raises ValueError. The serving
+    # compile cache is still refused.
     ("evaluate", ["--mesh-devices", "2", "--spatial-devices", "2"]),
     ("evaluate", ["--spatial-devices", "2"]),
     ("evaluate", ["--aot-cache", "some/dir"]),
     ("predict", ["--aot-cache", "some/dir"]),
 ], ids=lambda a: a if isinstance(a, str) else a[0].lstrip("-"))
 def test_flags_without_a_mechanism_raise(root, tmp_path, cli, argv) -> None:
+    if "--spatial-devices" in argv:
+        common = _common(root, "--dataset-root", str(root / "data"), "--split", "all",
+                         "--batch-size", "3", "--num-workers", "0", "--device", "cpu")
+        if "--mesh-devices" not in argv:
+            with pytest.raises(ValueError, match="1 rank\\(s\\) do not factor into spatial=2"):
+                evaluate.main(common + argv)
+            return
+        want = jax_evaluate.evaluate(jax_evaluate.build_parser().parse_args(
+            common + ["--aot-cache", "off", *argv]))
+        two = evaluate.main(common + argv)
+        one = evaluate.main(common + ["--mesh-devices", "1"])
+        assert two.keys() == want.keys() == one.keys()
+        for got in (two, one):
+            for key in ("checkpoint", "checkpoint_epoch", "split", "samples", "valid_pixels"):
+                assert got[key] == want[key], key
+            for key in ("mae", "rmse", "nll", "sigma", "loss"):
+                np.testing.assert_allclose(got[key], want[key], rtol=METRIC_RTOL, err_msg=key)
+        return
     with pytest.raises(NotImplementedError, match="not ported yet: .*ROADMAP Queue 1 item"):
         _cli_run(root, tmp_path, cli, "--device", "cpu", *argv)
     assert not list(tmp_path.glob("*.npz"))

@@ -192,18 +192,31 @@ def test_device_resident_training_on_the_packed_cache(root, tmp_path, window_gb)
     assert len(previews) == 2 * 2
 
 
-# The multi-rank flags run since the data-parallel slice
-# (tests/test_torch_distributed.py); here they come with a flag that is still
-# refused, which must raise before any rank starts or joins a rendezvous.
 _JOIN = ["--multihost", "--coordinator-address", "localhost:1234", "--num-processes", "2"]
 
 
+# --spatial-devices, refused before the height-sharding slice: with two
+# ranks (--mesh-devices 2) it makes a 1 x 2 mesh, which trains what one rank
+# trains on the same global batches (no augmentation, float32, streamed);
+# one rank does not factor into two stripes, which raises ValueError before
+# any rank starts (tests/test_torch_spatial.py holds the steps themselves).
 @pytest.mark.parametrize("argv", [
     ["--mesh-devices", "2", "--spatial-devices", "2"], ["--spatial-devices", "2"],
 ], ids=lambda a: a[0].lstrip("-"))
-def test_flags_without_a_mechanism_raise(argv) -> None:
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        trainer.train(parse_args(["--device", "cpu", *argv]))
+def test_flags_without_a_mechanism_raise(root, tmp_path, argv) -> None:
+    flags = _flags(root, "--epochs", "1", "--no-augment",
+                   "--mlflow-tracking-uri", str(tmp_path / "runs"))
+    if "--mesh-devices" not in argv:
+        with pytest.raises(ValueError, match="1 rank\\(s\\) do not factor into spatial=2"):
+            trainer.train(parse_args(flags + argv + ["--output-dir", str(tmp_path / "out")]))
+        assert not (tmp_path / "out").exists()
+        return
+    two = trainer.main(flags + argv + ["--output-dir", str(tmp_path / "two")])
+    one = trainer.main(flags + ["--mesh-devices", "1", "--output-dir", str(tmp_path / "one")])
+    assert "state" not in two and two["global_step"] == one["global_step"] == 3
+    for a, b in zip(two["epochs"], one["epochs"]):
+        for key in ("train_nll", "train_mae", "val_mae", "val_nll", "val_sigma"):
+            np.testing.assert_allclose(a[key], b[key], rtol=RTOL, err_msg=key)
 
 
 _AUTO = "<output-dir>/.aot_cache"
