@@ -49,7 +49,22 @@ plain PyTorch version on the card, and drives the port's two paths:
   fills the cache) and in a child process with empty Inductor and Triton
   caches of its own, which must load every graph from the blob. Inductor's
   and Triton's caches point at a fresh directory under ``build/`` for the
-  whole run, so the first compile is cold, and are removed at the end.
+  whole run, so the first compile is cold, and are removed at the end;
+- the StereoUNet's off-default knobs (``fused_block``, ``skip_impl`` split
+  and hybrid, ``bn_stats_dtype`` bfloat16, ``remat``) and flat AdamW at the
+  main path's setting, each from the default model's weights: one forward
+  and backward held against the default model's (flat AdamW: its second
+  step against AdamW's), a planted fault (a hybrid backward that swaps its
+  two input gradients) that the check must catch, ``remat`` also against
+  the default model in float32 with the BatchNorm running statistics after
+  the step, then timed steps with their launches and peak memory;
+- the serving forwards compiled (the serving CLIs' ``--compile``):
+  evaluate over a ragged tail and predict, each against its eager run, the
+  steady compiled ``predict_fn`` and eval step beside eager, the live engine
+  compiled in mode ``default`` and ``reduce-overhead`` (CUDA graphs, its K2
+  launches counted by the profiler) against the eager engine and across a
+  hot reload, and a child process with empty Inductor and Triton caches that
+  loads all three from the blobs the first process saved.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
@@ -91,7 +106,7 @@ from stereo_depth_estimation_tpu_torch.data.samples import discover_samples, spl
 from stereo_depth_estimation_tpu_torch.eval import evaluate, predict
 from stereo_depth_estimation_tpu_torch.eval.preview import normalize_map
 from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatcher, LiveDepthEngine
-from stereo_depth_estimation_tpu_torch.models import StereoUNet
+from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
 from stereo_depth_estimation_tpu_torch.ops import pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
@@ -113,6 +128,7 @@ from stereo_depth_estimation_tpu_torch.ops.remap import Rectifier
 from stereo_depth_estimation_tpu_torch.parallel import (
     CompileOptions,
     TrainState,
+    compile_model,
     create_train_state,
     make_adamw,
     make_device_data_train_step,
@@ -121,6 +137,7 @@ from stereo_depth_estimation_tpu_torch.parallel import (
     make_train_step,
     train_step,
 )
+from stereo_depth_estimation_tpu_torch.parallel.flat_adamw import make_flat_adamw
 from stereo_depth_estimation_tpu_torch.parallel.distributed import (
     initialize_multihost,
     next_farm_port,
@@ -204,6 +221,61 @@ SP_AUGMENT = AugmentConfig(blur_prob=0.5)
 # and 112 rows against 240, the cross-rank BatchNorm's E[x^2] - E[x]^2.
 # An H100 read 8.16e-8, 3.37e-7 and 0.22% (PERF.md section 6).
 SP_STATS_RTOL, SP_BN_RTOL, SP_GRAD_RTOL = 1e-6, 5e-6, 0.008
+# Compiled serving phase (the serving CLIs' --compile: Inductor, mode default
+# unless said), on the serving phase's dataset and last.pt, base 32 f32, TF32
+# off: evaluate scores SERVE_RAGGED samples (a batch of 30 and a tail of 20,
+# padded), held to SERVE_RTOL against the eager evaluate of the same call;
+# predict's npz files within a float16 ulp plus SERVE_ATOL of eager predict's;
+# the live engine compiled in each mode of LIVE_MODES against the eager
+# engine within SERVE_ATOL (disparity, log-variance) and one level (views).
+SERVE_RAGGED = 50
+LIVE_MODES = ("default", "reduce-overhead")
+# Knobs phase: the StereoUNet's off-default knobs and flat AdamW at the main
+# path's setting (base 32, bf16, batch 128, 240x320, augmented), each from
+# the default model's weights. One forward and backward of each knob's model
+# on one augmented batch is held against the default model's: the summed
+# LossStats within the knob's limit relative and each gradient leaf within
+# its limit of the leaf's norm (floored as GRAD_FLOOR says). Flat AdamW's
+# model is the default one: its second step (LossStats and gradients, after
+# one update by each optimizer from the same state) is held to the same
+# limits against AdamW's. Then KNOB_STEPS train steps each, timed, with peak
+# memory. A hybrid backward that swaps its two input gradients must miss.
+KNOB_STEPS = 3
+# name -> (the model's keyword arguments, the LossStats limit, the gradient
+# limit). Each limit is set a few times above what an H100 read (PERF.md
+# section 6: LossStats 1.9e-6, 5.7e-6, 0, 2.8e-4, 0 and 2.4e-6-4.6e-6;
+# gradients 4.6%, 3.1%, 0.28%, 46.5%, 0 and 1.8-1.9%), or at float noise
+# where it read 0. The comparisons run on cuDNN's deterministic algorithms,
+# so that a reading repeats; the default model against a copy of itself
+# reads 0 there. remat repeats the default's arithmetic, yet in bf16 its
+# weight gradients land on the other side of a bf16 rounding in places
+# (cuDNN sums them in another order there): an H100 read 0 in some calls
+# and 0.195-0.205% of enc1/enc2's norm in others, so its limit is the
+# hybrid's. Its arithmetic is held in float32 instead (REMAT_F32_*).
+# In bf16 the knobs round at other places than cuDNN's BatchNorm (a ReLU
+# input near 0 then takes the other side of the kink); bf16 statistics
+# also compute the BatchNorm backward's cancelling terms from bf16-rounded
+# moments, which moves the first layer's gradient by half its norm: that is
+# the knob's arithmetic, as in the JAX model. The planted hybrid fault read
+# 1.53 of a leaf's norm.
+KNOBS = {
+    "fused_block": ({"fused_block": True}, 2e-5, 0.1),
+    "skip_impl split": ({"skip_impl": "split"}, 2e-5, 0.1),
+    "skip_impl hybrid": ({"skip_impl": "hybrid"}, 1e-5, 0.01),
+    "bn_stats_dtype bf16": ({"bn_stats_dtype": torch.bfloat16}, 1e-3, 1.0),
+    "remat": ({"remat": True}, 1e-6, 0.01),
+    "flat AdamW": ({}, 1e-5, 0.05),
+}
+# remat against the default model in float32 (TF32 off, cuDNN's
+# deterministic algorithms, cuDNN's heuristics in place of autotuning), on
+# the first REMAT_F32_BATCH pairs of the knobs' batch: the summed LossStats
+# relative, each gradient leaf relative to its norm (floored as GRAD_FLOOR
+# says) and each BatchNorm running statistic after the step relative to its
+# norm. Float32 cuDNN algorithms part by 1e-7-6e-7 of a leaf's norm on an
+# H100; a recompute that updates the running statistics a second time moves
+# them by the momentum's share of the batch's.
+REMAT_F32_BATCH = 16
+REMAT_F32_STATS_RTOL, REMAT_F32_GRAD_RTOL, REMAT_F32_BN_RTOL = 1e-6, 1e-5, 1e-6
 # The train step before the pools ran on K2/K3, same path and card
 # (PERF.md section 5, H100 80GB HBM3 at 700 W).
 BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
@@ -764,15 +836,16 @@ def check_evaluate(data: Path, ckpt: Path, *argv: str) -> tuple[dict, float, int
     return result, seconds, got["K2"]
 
 
-def check_predict(data: Path, ckpt: Path, out: Path, calib: Path) -> tuple[dict, float, int]:
+def check_predict(data: Path, ckpt: Path, out: Path, calib: Path,
+                  *argv: str) -> tuple[dict, float, int]:
     """The predict CLI on the dataset's first ``PREDICT_PAIRS`` pairs with
-    ``--save-png`` and a calibration; checks its launches and every npz.
-    Returns its JSON line, seconds and K2 launches."""
+    ``--save-png``, a calibration and ``argv``; checks its launches and every
+    npz. Returns its JSON line, seconds and K2 launches."""
     result, got, seconds = counted(predict.main, [
         "--dataset-root", str(data), "--split", "all", "--max-samples", str(PREDICT_PAIRS),
         "--checkpoint", str(ckpt), "--predictions-dir", str(out), "--save-png",
         "--calibration", str(calib), "--batch-size", str(SERVE_BATCH),
-        "--height", str(HW[0]), "--width", str(HW[1])])
+        "--height", str(HW[0]), "--width", str(HW[1]), *argv])
     batches = -(-PREDICT_PAIRS // SERVE_BATCH)
     check(got == serving_counts(4 * batches),
           f"predict: launches {got} in {batches} batches, expected K2 {4 * batches}")
@@ -1056,6 +1129,550 @@ def check_live(tmp: Path, ckpt: Path, calib: dict[str, np.ndarray]) -> int:
           f"{engine.loaded_epoch}, disparity moved by up to {moved:.3f} ok "
           f"({time.perf_counter() - t0:.2f} s with the checkpoint's rewrite)")
     return live_counts["K2"]
+
+
+def npz_gap(got_dir: Path, want_dir: Path) -> float:
+    """The largest gap between two predict runs' npz files, less a float16
+    ulp of the larger value (what storing float32 outputs in float16 can
+    add): at most SERVE_ATOL when they agree."""
+    worst = 0.0
+    for path in sorted(want_dir.glob("*.npz")):
+        with np.load(path) as want, np.load(got_dir / path.name) as got:
+            for key in want.files:
+                a, b = got[key].astype(np.float32), want[key].astype(np.float32)
+                finite = np.isfinite(b)
+                check(bool((np.isfinite(a) == finite).all()), f"{path.name} {key}: finiteness")
+                ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float16))
+                worst = max(worst, float((np.abs(a - b) - ulp.astype(np.float32))[finite].max()))
+    return worst
+
+
+def live_stage_split(engine: LiveDepthEngine, frames) -> dict[str, float]:
+    """``stage_split`` of a compiled engine: the upload, the compiled program
+    and the download."""
+    stages = ("H2D", "program", "D2H")
+    spans: dict[str, list[float]] = {name: [] for name in stages}
+    for left, right in frames:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        events[0].record()
+        up = engine.upload(left, right)
+        events[1].record()
+        out = engine.run_compiled(*up)
+        events[2].record()
+        engine.download(*out)
+        events[3].record()
+        torch.cuda.synchronize()
+        for k, name in enumerate(stages):
+            spans[name].append(events[k].elapsed_time(events[k + 1]))
+    return {name: statistics.median(v) for name, v in spans.items()}
+
+
+def live_engine_runs(engines: dict[str, LiveDepthEngine], frames, warmup: int) -> dict:
+    """Each engine's first call (its compile) and warm-up on ``frames``, its
+    peak memory over LIVE_SPLIT_FRAMES frames alone; then the timed frames
+    in turns, one frame through every engine before the next, the order
+    rotating frame by frame, so the host's drift falls on all alike: each
+    engine's host seconds, outputs and the kernels' launch counters over
+    its frames; then each one's split by stage and the profiler's device
+    time, busy share and K2 launches a frame."""
+    runs = {}
+    for name, engine in engines.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.process(*frames[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for left, right in frames[1:warmup]:
+            engine.process(left, right)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for left, right in frames[warmup:warmup + LIVE_SPLIT_FRAMES]:
+            engine.process(left, right)
+        torch.cuda.synchronize()
+        runs[name] = {"first_s": first_s, "times": [], "outs": [],
+                      "counts": dict.fromkeys(counts(), 0),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    names = list(engines)
+    for i, (left, right) in enumerate(frames[warmup:]):
+        for name in names[i % len(names):] + names[:i % len(names)]:
+            torch.cuda.synchronize()
+            before = counts()
+            t0 = time.perf_counter()
+            runs[name]["outs"].append(engines[name].process(left, right))
+            runs[name]["times"].append(time.perf_counter() - t0)
+            for k, v in counts().items():
+                runs[name]["counts"][k] += v - before[k]
+    timed = frames[warmup:]
+    for name, engine in engines.items():
+        run = runs[name]
+        run["split"] = (stage_split if engine.compile is None else live_stage_split)(
+            engine, timed[:LIVE_SPLIT_FRAMES])
+        rows, _ = profile_kernels(lambda: engine.process(*timed[0]), LIVE_SPLIT_FRAMES)
+        run["kernel_ms"] = sum(r[0] for r in rows) / 1e3 / LIVE_SPLIT_FRAMES
+        run["ms"] = statistics.median(run["times"]) * 1e3
+        run["busy"] = 100 * run["kernel_ms"] / run["ms"]
+        run["k2_profiled"] = sum(r[1] for r in rows if "maxpool2x2_fwd" in r[2])
+        run["kernels"] = sum(r[1] for r in rows) / LIVE_SPLIT_FRAMES
+    return runs
+
+
+def live_frame_gap(got, want) -> tuple[float, int]:
+    """The largest disparity/log-variance gap and view gap (levels) of two
+    engines' outputs for one frame."""
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got[:2], want[:2]))
+    view = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+               for a, b in zip(got[2:], want[2:]))
+    return err, view
+
+
+def reload_with_bias(path: Path, source: Path, epoch: int) -> None:
+    """Replace ``path`` atomically with ``source`` whose disparity head bias
+    is moved by 0.5, marked ``epoch``, its mtime a second ahead."""
+    payload = torch.load(source, map_location="cpu", weights_only=False)
+    payload["epoch"] = epoch
+    payload["model_state_dict"]["disparity_head.bias"] += 0.5
+    staged = path.with_name(path.name + ".tmp")
+    torch.save(payload, staged)
+    os.replace(staged, path)
+    bump = time.time_ns() + 10**9
+    os.utime(path, ns=(bump, bump))
+
+
+def check_live_compiled(tmp: Path, ckpt: Path, calib: dict[str, np.ndarray],
+                        aot: Path) -> dict:
+    """The live engine compiled in each of LIVE_MODES (the ``default`` one
+    with the compile cache at ``aot``) beside the eager engine on the same
+    frames, in turns (``live_engine_runs``): ms/frame, split, busy share,
+    peak memory, output against the eager engine, launches (the counters
+    and the profiler); then a hot reload of every engine that recompiles
+    nothing and gives the eager engine's output on the new weights. Returns
+    the runs by engine and the K2 launches."""
+    model_wh = (HW[1], HW[0])
+    rng = np.random.default_rng(13)
+    frames = [tuple(rng.integers(0, 256, (*CAPTURE_HW, 3), dtype=np.uint8) for _ in range(2))
+              for _ in range(LIVE_WARMUP + LIVE_FRAMES)]
+    engines, paths = {}, {}
+    for name in ("eager", *LIVE_MODES):
+        paths[name] = tmp / f"live_{name}.pt"
+        shutil.copyfile(ckpt, paths[name])
+        options = None if name == "eager" else CompileOptions(mode=name)
+        engines[name] = LiveDepthEngine(
+            model_wh, Rectifier.from_calibration(calib, "cuda"), "cuda", 32, compile=options,
+            compile_cache=aot if name == "default" else None)
+        engines[name].load_checkpoint(paths[name])
+    torch._dynamo.reset()
+    g0 = graph_count()
+    runs = live_engine_runs(engines, frames, LIVE_WARMUP)
+    graphs = graph_count() - g0
+    check(graphs == len(LIVE_MODES), f"live: {graphs} graphs over the compiled engines' "
+          f"frames, expected one each ({len(LIVE_MODES)})")
+    # Hot reload: the weights are copied into the tensors each program (and
+    # its CUDA graph) reads.
+    for name, engine in engines.items():
+        watcher = CheckpointWatcher(engine, paths[name], poll_sec=0.0)
+        reload_with_bias(paths[name], ckpt, 99)
+        watcher.maybe_reload()
+        check(engine.loaded_epoch == 99, f"live {name}: reloaded epoch {engine.loaded_epoch}")
+    reloaded = {name: engine.process(*frames[LIVE_WARMUP]) for name, engine in engines.items()}
+    recompiles = graph_count() - g0 - graphs
+    check(recompiles == 0, f"live: the hot reload recompiled {recompiles} times")
+    k2 = {}
+    for mode in LIVE_MODES:
+        run = runs[mode]
+        gaps = [live_frame_gap(a, b) for a, b in zip(run["outs"], runs["eager"]["outs"])]
+        err, view = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        check(err <= SERVE_ATOL and view <= 1, f"live {mode} vs eager: {err:.3g} (tol "
+              f"{SERVE_ATOL:g}), views {view} levels")
+        reload_err, reload_view = live_frame_gap(reloaded[mode], reloaded["eager"])
+        moved = float(np.abs(reloaded[mode][0] - run["outs"][0][0]).max())
+        check(moved > 1e-3 and reload_err <= SERVE_ATOL and reload_view <= 1,
+              f"live {mode} hot reload: moved {moved:.3g}, vs eager on the new weights "
+              f"{reload_err:.3g}, views {reload_view}")
+        check(run["k2_profiled"] == 4 * LIVE_SPLIT_FRAMES,
+              f"live {mode}: the profiler saw {run['k2_profiled']} K2 launches in "
+              f"{LIVE_SPLIT_FRAMES} frames")
+        replayed = mode == "reduce-overhead"  # CUDA graph replays run no Python counter
+        want_k2 = 0 if replayed else 4 * LIVE_FRAMES
+        check(run["counts"] == serving_counts(want_k2),
+              f"live {mode}: launch counters {run['counts']} over {LIVE_FRAMES} frames, "
+              f"expected K2 {want_k2}")
+        run.update(err=err, view=view, reload_err=reload_err)
+        k2[f"live {mode}"] = {"counter": run["counts"]["K2"],
+                              "profiler": run["k2_profiled"], "frames": LIVE_FRAMES,
+                              "profiled_frames": LIVE_SPLIT_FRAMES}
+    runs["default"]["cache"] = engines["default"].compile_cache.reports["live frame"]
+
+    def describe(name: str, run: dict) -> str:
+        return (f"{name} {run['ms']:.2f} ms/frame median (min {min(run['times']) * 1e3:.2f}, "
+                f"max {max(run['times']) * 1e3:.2f}; first call {run['first_s']:.1f} s), split "
+                + ", ".join(f"{k} {v:.3f}" for k, v in run["split"].items())
+                + f" ms, device kernels {run['kernel_ms']:.3f} ms a frame "
+                f"({run['kernels']:.0f} kernels) = busy {run['busy']:.1f}%, peak "
+                f"{run['peak_gib']:.3f} GiB")
+
+    print(f"live compiled: {CAPTURE_HW[1]}x{CAPTURE_HW[0]} captures rectified and resized to "
+          f"{HW[1]}x{HW[0]}, base 32 f32, batch 1, TF32 off, {LIVE_FRAMES} frames after "
+          f"{LIVE_WARMUP}, the engines in turns: "
+          + "; ".join(describe(k, r) for k, r in runs.items()))
+    for mode in LIVE_MODES:
+        run = runs[mode]
+        print(f"live compiled: {mode}: 1 graph, vs the eager engine on every frame: disparity "
+              f"and logvar within {run['err']:.3g} (tol {SERVE_ATOL:g}), views within "
+              f"{run['view']} level; hot reload (epoch 99): 0 recompiles, vs the eager engine "
+              f"on the new weights {run['reload_err']:.3g} ok; K2 launches: the counter "
+              f"{run['counts']['K2']} over {LIVE_FRAMES} frames, the profiler "
+              f"{run['k2_profiled']} in {LIVE_SPLIT_FRAMES} frames ok; "
+              f"{runs['eager']['ms'] / run['ms']:.3f}x the eager frame")
+    return {"runs": runs, "k2": k2}
+
+
+def serving_argv(aot: Path) -> dict[str, list[str]]:
+    """The compiled serving CLIs' flags beyond ``check_evaluate``'s and
+    ``check_predict``'s: evaluate over SERVE_RAGGED samples; both compiled
+    with the compile cache at ``aot``."""
+    return {
+        "evaluate": ["--split", "all", "--max-samples", str(SERVE_RAGGED),
+                     "--compile", "--aot-cache", str(aot)],
+        "predict": ["--compile", "--aot-cache", str(aot)],
+    }
+
+
+def serving_cache_child(tmp_dir: str) -> None:
+    """The second process of the serving compile-cache check (``python -c``,
+    from the repository root, with empty Inductor and Triton caches of its
+    own): evaluate, predict and the live engine compiled on the first
+    process's ``--aot-cache`` directory; prints one RESULT line."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() runs the first
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp_dir)
+    ckpt, aot, calib = tmp / "serving.pt", tmp / "serving_aot", tmp / "stereo_calib.npz"
+    argv = serving_argv(aot)
+    t0 = time.perf_counter()
+    ev, _, _ = check_evaluate(tmp / "data", ckpt, *argv["evaluate"])
+    pr, _, _ = check_predict(tmp / "data", ckpt, tmp / "predictions_child", calib,
+                             *argv["predict"])
+    with np.load(calib) as bundle:
+        rectifier = Rectifier.from_calibration(dict(bundle), "cuda")
+    engine = LiveDepthEngine((HW[1], HW[0]), rectifier, "cuda", 32,
+                             compile=CompileOptions(), compile_cache=aot)
+    engine.load_checkpoint(ckpt)
+    rng = np.random.default_rng(14)
+    engine.process(*(rng.integers(0, 256, (*CAPTURE_HW, 3), dtype=np.uint8) for _ in range(2)))
+    print("RESULT " + json.dumps({
+        "evaluate": ev["compile_cache"]["eval step"], "predict": pr["compile_cache"]["predict"],
+        "live": engine.compile_cache.reports["live frame"],
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def steady_compiled(ckpt: Path) -> dict:
+    """predict_fn and the eval step at batch 30 f32, eager and compiled
+    (Inductor, default mode) from ``ckpt``, SERVE_REPS calls each after a
+    warm-up, TF32 off and then on; the compiled predict_fn's output against
+    the eager one's (TF32 off)."""
+    model = StereoUNet(base_channels=32, device="cuda").eval()
+    checkpoint.load_model_variables(ckpt, model)
+    compiled = compile_model(model, CompileOptions())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    batch = torch.randint(0, 256, (SERVE_BATCH, *HW, 6), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    target = torch.rand((SERVE_BATCH, *HW), device="cuda", generator=gen) * 63.5 + 0.5
+    eval_step = make_eval_step()
+    fns = {}
+    for name, module in (("eager", None), ("compiled", compiled)):
+        predict_fn = make_predict_fn(model, compiled=module)
+        state = TrainState(model, None, None, compiled=module)
+        fns[f"predict_fn {name}"] = functools.partial(predict_fn, batch)
+        fns[f"eval step {name}"] = functools.partial(
+            eval_step, state, {"input": batch, "target": target})
+    g0 = graph_count()
+    off = {name: rep_ms(fn, SERVE_REPS) for name, fn in fns.items()}
+    graphs_off = graph_count() - g0
+    err, _ = max_err(fns["predict_fn compiled"](), fns["predict_fn eager"]())
+    check(err <= SERVE_ATOL, f"compiled predict_fn vs eager (TF32 off): {err:.3g}")
+    with cudnn_tf32():
+        on = {name: rep_ms(fn, SERVE_REPS) for name, fn in fns.items()}
+    graphs_on = graph_count() - g0 - graphs_off
+    for what in ("predict_fn", "eval step"):
+        e_off, c_off = off[f"{what} eager"], off[f"{what} compiled"]
+        e_on, c_on = on[f"{what} eager"], on[f"{what} compiled"]
+        print(f"{what} compiled: batch {SERVE_BATCH} f32, {SERVE_REPS} calls after a warm-up: "
+              f"TF32 off compiled {spread(c_off)} vs eager {spread(e_off)} "
+              f"({statistics.median(e_off) / statistics.median(c_off):.3f}x); with "
+              f"cudnn.allow_tf32=True compiled {spread(c_on)} vs eager {spread(e_on)} "
+              f"({statistics.median(e_on) / statistics.median(c_on):.3f}x)")
+    print(f"predict_fn compiled: vs eager on the batch (TF32 off) within {err:.3g} (tol "
+          f"{SERVE_ATOL:g}) ok; new graphs {graphs_off} with TF32 off (a graph the CLIs "
+          f"compiled serves where its guards hold), {graphs_on} after turning cuDNN TF32 on")
+    return {"off": off, "on": on, "err": err}
+
+
+def phase_compiled_serving(tmp: Path, ckpt: Path, caches: Path) -> dict:
+    """The serving CLIs with ``--compile`` (Inductor, mode default) on the
+    serving phase's dataset and ``last.pt``: evaluate over a ragged tail and
+    predict, each held against its eager run of this call, with the compile
+    cache at one directory; the steady compiled forwards beside eager; the
+    live engine compiled in each mode; then a child process with empty
+    Inductor and Triton caches runs all three from that directory's blobs.
+    Returns the K2 launches and the compile seconds."""
+    data, aot, calib = tmp / "data", tmp / "serving_aot", tmp / "stereo_calib.npz"
+    shutil.copyfile(ckpt, tmp / "serving.pt")
+    ckpt = tmp / "serving.pt"
+    argv = serving_argv(aot)
+    eager, eager_s, _ = check_evaluate(data, ckpt, *argv["evaluate"][:4])
+    torch._dynamo.reset()
+    g0 = graph_count()
+    got, got_s, k2_eval = check_evaluate(data, ckpt, *argv["evaluate"])
+    graphs = graph_count() - g0
+    eval_cache = got["compile_cache"]["eval step"]
+    check(graphs == 1, f"compiled evaluate: {graphs} graphs over a ragged tail, expected 1")
+    check(eval_cache["source"] == "compiled", f"compiled evaluate cache {eval_cache}")
+    worst = max(abs(got[k] - eager[k]) / abs(eager[k]) for k in ("mae", "rmse", "nll", "sigma"))
+    check(got["valid_pixels"] == eager["valid_pixels"] and worst <= SERVE_RTOL,
+          f"compiled evaluate {got} vs eager {eager}: {worst:.3g}")
+    print(f"evaluate compiled: --compile --aot-cache <dir>, base 32 f32, batch {SERVE_BATCH}, "
+          f"{got['samples']} samples (a batch of {SERVE_BATCH} and a tail of "
+          f"{got['samples'] % SERVE_BATCH} padded to it), TF32 off: {got_s:.2f} s with its cold "
+          f"compile ({eval_cache['seconds']:.1f} s the first batch) vs eager {eager_s:.2f} s; "
+          f"1 graph, 0 recompiles; metrics within {worst:.2g} (rel) of the eager evaluate's "
+          f"(tol {SERVE_RTOL:g}), valid pixels {got['valid_pixels']} equal; K2 launches "
+          f"{k2_eval} (4 a batch) ok")
+
+    g0 = graph_count()
+    pred, pred_s, k2_pred = check_predict(data, ckpt, tmp / "predictions_compiled", calib,
+                                          *argv["predict"])
+    graphs = graph_count() - g0
+    pred_cache = pred["compile_cache"]["predict"]
+    check(graphs == 1 and pred_cache["source"] == "compiled",
+          f"compiled predict: {graphs} graphs, cache {pred_cache}")
+    gap = npz_gap(tmp / "predictions_compiled", tmp / "predictions")
+    check(gap <= SERVE_ATOL, f"compiled predict vs eager predict: npz gap {gap:.3g} beyond a "
+          f"float16 ulp (tol {SERVE_ATOL:g})")
+    print(f"predict compiled: --compile --aot-cache <dir>, {pred['pairs']} pairs (a batch of "
+          f"{SERVE_BATCH} and a padded tail of {PREDICT_PAIRS % SERVE_BATCH}), TF32 off: "
+          f"{pred_s:.2f} s with its cold compile ({pred_cache['seconds']:.1f} s the first "
+          f"batch); 1 graph; every npz within a float16 ulp plus {max(gap, 0.0):.3g} of the "
+          f"eager predict's (tol {SERVE_ATOL:g}); K2 launches {k2_pred} ok")
+
+    steady = steady_compiled(ckpt)
+    with np.load(calib) as bundle:
+        live = check_live_compiled(tmp, ckpt, dict(bundle), aot)
+
+    env = dict(os.environ)
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor_serving_child"),
+                     ("TRITON_CACHE_DIR", "triton_serving_child")):
+        (caches / sub).mkdir()
+        env[var] = str(caches / sub)
+    t0 = time.perf_counter()
+    [(line, _)] = run_process_farm(
+        "import sys, chip_smoke; chip_smoke.serving_cache_child(sys.argv[1])",
+        lambda i: [str(tmp)], num_processes=1, timeout=600,
+        cwd=str(Path(__file__).resolve().parent), env=env)
+    child_s = time.perf_counter() - t0
+    child = json.loads(line)
+    for label in ("evaluate", "predict", "live"):
+        report = child[label]
+        check(report["source"] == "aot-cache" and report["fxgraph_cache_hit"] > 0
+              and report["fxgraph_cache_miss"] == 0,
+              f"serving child {label}: {report} (expected its graph from the blob)")
+    cold = {"evaluate": eval_cache["seconds"], "predict": pred_cache["seconds"],
+            "live": live["runs"]["default"]["cache"]["seconds"]}
+    blobs = sorted(aot.glob("aot_*.bin"))
+    print("serving compile cache: --aot-cache <dir> shared by the three: cold compile in this "
+          "process (first call) " + ", ".join(f"{k} {v:.1f} s" for k, v in cold.items())
+          + "; a second process with empty Inductor and Triton caches loads each from the blob: "
+          + ", ".join(f"{k} {child[k]['seconds']:.1f} s (aot-cache, FX-graph cache hits "
+                      f"{child[k]['fxgraph_cache_hit']}, misses 0)" for k in cold)
+          + f"; {len(blobs)} blobs, {sum(b.stat().st_size for b in blobs) / 1e6:.1f} MB; the "
+          f"child {child['seconds']:.1f} s for all three runs, {child_s:.1f} s with its start ok")
+    return {"k2": {"evaluate": k2_eval, "predict": k2_pred, **live["k2"]},
+            "cold": cold, "from_blob": {k: child[k]["seconds"] for k in cold},
+            "steady": steady}
+
+
+def knob_forward_backward(model: StereoUNet, inputs: torch.Tensor, target: torch.Tensor,
+                          mask: torch.Tensor) -> tuple[list[float], dict]:
+    """One train-mode forward and backward: LossStats and gradients."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    disp, logvar = model(inputs, return_uncertainty=True)
+    loss, stats = heteroscedastic_laplace_nll(disp[..., 0], logvar[..., 0], target, mask)
+    loss.backward()
+    return ([float(s.detach()) for s in stats],
+            {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+
+
+def knob_gaps(want, got) -> tuple[float, float, str]:
+    (stats_w, grads_w), (stats_g, grads_g) = want, got
+    stats_gap = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(stats_g, stats_w))
+    gap, leaf = largest_leaf_gap(grads_w, grads_g)
+    return stats_gap, gap, leaf
+
+
+def knob_gaps_all(default: StereoUNet, build, inputs: torch.Tensor, target: torch.Tensor,
+                  mask: torch.Tensor, batch: dict) -> tuple[dict, tuple[float, float, str]]:
+    """Each of KNOBS against the default model on one augmented batch (flat
+    AdamW: the second step against AdamW's), and the planted hybrid fault:
+    the knobs' gaps and the fault's."""
+    want = knob_forward_backward(default, inputs, target, mask)
+    floor = knob_gaps(want, knob_forward_backward(build({}), inputs, target, mask))
+
+    def two_steps(factory) -> tuple[list[float], dict]:
+        model = build({})
+        state = create_train_state(model, factory(model.parameters(), 1e-3, 1e-4), seed=0)
+        step = make_train_step(AugmentConfig())
+        step(state, batch)
+        _, stats = step(state, batch)
+        return ([float(s) for s in stats],
+                {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+
+    results = {}
+    adamw_second = two_steps(make_adamw)
+    for name, (kwargs, _, _) in KNOBS.items():
+        if name == "flat AdamW":
+            gaps = knob_gaps(adamw_second, two_steps(make_flat_adamw))
+        else:
+            gaps = knob_gaps(want, knob_forward_backward(build(kwargs), inputs, target, mask))
+        results[name] = {"stats_gap": gaps[0], "grad_gap": gaps[1], "leaf": gaps[2]}
+
+    # The planted fault: a hybrid backward that swaps its input gradients.
+    real = unet._ConcatConv.backward
+
+    def swapped(ctx, dz):
+        d_up, d_skip, dw, none = real(ctx, dz)
+        return d_skip, d_up, dw, none
+
+    unet._ConcatConv.backward = staticmethod(swapped)
+    try:
+        fault = knob_gaps(want, knob_forward_backward(build({"skip_impl": "hybrid"}), inputs,
+                                                      target, mask))
+    finally:
+        unet._ConcatConv.backward = staticmethod(real)
+    return results, fault, floor
+
+
+def remat_in_f32(weights: dict, inputs: torch.Tensor, target: torch.Tensor,
+                 mask: torch.Tensor) -> dict:
+    """remat against the default model in float32 on the first
+    REMAT_F32_BATCH pairs (the caller sets cuDNN's deterministic algorithms):
+    the gaps of the LossStats, the gradients and the BatchNorm running
+    statistics after the step."""
+    runs = []
+    for remat in (False, True):
+        model = StereoUNet(base_channels=32, device="cuda", remat=remat)
+        model.load_state_dict(weights)
+        n = REMAT_F32_BATCH
+        stats, grads = knob_forward_backward(model, inputs[:n].float(), target[:n], mask[:n])
+        running = {k: v.float().cpu() for k, v in model.state_dict().items()
+                   if "running_" in k}
+        runs.append(((stats, grads), running))
+        del model
+    (plain, plain_bn), (remat, remat_bn) = runs
+    stats_gap, grad_gap, leaf = knob_gaps(plain, remat)
+    bn_gap, buffer = max((float((remat_bn[k] - v).norm()) / max(float(v.norm()), 1e-12), k)
+                         for k, v in plain_bn.items())
+    return {"stats_gap": stats_gap, "grad_gap": grad_gap, "leaf": leaf, "bn_gap": bn_gap,
+            "buffer": buffer}
+
+
+def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
+    """Each of KNOBS at the main path's setting from the default model's
+    weights: one forward and backward held against the default model's on
+    one augmented batch (flat AdamW: the second step against AdamW's), a
+    planted hybrid fault that must miss, remat in float32 (``remat_in_f32``),
+    then KNOB_STEPS timed train steps with their launches and peak memory."""
+    default = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    weights = {k: v.clone() for k, v in default.state_dict().items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    batch = {"input": images[:BATCH], "target": targets[:BATCH]}
+    inputs = augment_stereo_batch_fused(gen, batch["input"], AugmentConfig(),
+                                        out_dtype=torch.bfloat16)
+    target, mask = train_step._targets_and_mask(batch)
+
+    def build(kwargs) -> StereoUNet:
+        model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
+                           **kwargs)
+        model.load_state_dict(weights)
+        return model
+
+    # cuDNN's deterministic algorithms for the comparisons, so that their
+    # readings repeat; the timed steps below run the autotuned ones.
+    torch.backends.cudnn.deterministic = True
+    try:
+        results, fault, floor = knob_gaps_all(default, build, inputs, target, mask, batch)
+        torch.backends.cudnn.benchmark = False
+        remat32 = remat_in_f32(weights, inputs, target, mask)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+
+    # The default model first and last: the spread of the two readings is
+    # the drift of the call.
+    for name, (kwargs, _, _) in {"default": ({}, 0, 0), **KNOBS,
+                                 "default again": ({}, 0, 0)}.items():
+        model = build(kwargs)
+        factory = make_flat_adamw if name == "flat AdamW" else make_adamw
+        state = create_train_state(model, factory(model.parameters(), 1e-3, 1e-4), seed=0)
+        step = make_train_step(AugmentConfig())
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(KNOB_STEPS):
+            _, stats = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        run_counts = counts()
+        expected = {"GM": KNOB_STEPS, "K1": KNOB_STEPS, "K2": 4 * KNOB_STEPS,
+                    "K3": 4 * KNOB_STEPS}
+        check(run_counts == expected, f"knob {name}: launches {run_counts}, expected {expected}")
+        check(math.isfinite(metrics_from_stats(stats)["loss"]), f"knob {name}: loss {stats}")
+        results.setdefault(name, {}).update(
+            ms=start.elapsed_time(end) / KNOB_STEPS,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, counts=run_counts)
+        del model, state, step
+        torch.cuda.empty_cache()
+    base = results["default"]
+    print(f"knobs: the default model {base['ms']:.2f} ms/step first and "
+          f"{results['default again']['ms']:.2f} last, peak {base['peak_gib']:.2f} GiB")
+    for name, (_, stats_tol, grad_tol) in KNOBS.items():
+        r = results[name]
+        against = "AdamW's second step" if name == "flat AdamW" else "the default model"
+        print(f"knobs: {name}: vs {against} (base 32 bf16, batch {BATCH}, {HW[0]}x{HW[1]}, "
+              f"one augmented batch): LossStats within {r['stats_gap']:.3g} (tol "
+              f"{stats_tol:g}), gradients within {r['grad_gap']:.3g} of their norm (largest "
+              f"in {r['leaf']}; tol {grad_tol:g}); {KNOB_STEPS} augmented steps "
+              f"{r['ms']:.2f} ms/step ({base['ms'] / r['ms']:.3f}x the default's "
+              f"{base['ms']:.2f}), peak {r['peak_gib']:.2f} GiB (default "
+              f"{base['peak_gib']:.2f}); launches {r['counts']}")
+    print(f"knobs: the default model against a copy of itself (the comparisons' floor, "
+          f"cuDNN's deterministic algorithms): LossStats within {floor[0]:.3g}, gradients "
+          f"within {floor[1]:.3g} of their norm (largest in {floor[2]})")
+    print(f"knobs: remat in float32 (TF32 off, the first {REMAT_F32_BATCH} pairs): LossStats "
+          f"within {remat32['stats_gap']:.3g} (tol {REMAT_F32_STATS_RTOL:g}), gradients within "
+          f"{remat32['grad_gap']:.3g} of their norm (largest in {remat32['leaf']}; tol "
+          f"{REMAT_F32_GRAD_RTOL:g}), BatchNorm running statistics after the step within "
+          f"{remat32['bn_gap']:.3g} (largest in {remat32['buffer']}; tol "
+          f"{REMAT_F32_BN_RTOL:g})")
+    hybrid_tol = KNOBS["skip_impl hybrid"][2]
+    print(f"knobs: planted fault, a hybrid backward that swaps its two input gradients: "
+          f"gradients off by {fault[1]:.3g} of their norm (in {fault[2]}), "
+          f"{fault[1] / hybrid_tol:.1f}x the hybrid limit")
+    for name, (_, stats_tol, grad_tol) in KNOBS.items():
+        r = results[name]
+        check(r["stats_gap"] <= stats_tol and r["grad_gap"] <= grad_tol,
+              f"knob {name}: LossStats {r['stats_gap']:.3g} (tol {stats_tol:g}), gradient of "
+              f"{r['leaf']} {r['grad_gap']:.3g} of its norm (tol {grad_tol:g})")
+    check(remat32["stats_gap"] <= REMAT_F32_STATS_RTOL
+          and remat32["grad_gap"] <= REMAT_F32_GRAD_RTOL
+          and remat32["bn_gap"] <= REMAT_F32_BN_RTOL, f"knob remat in float32: {remat32}")
+    check(fault[1] > hybrid_tol, f"the planted hybrid fault reads only {fault[1]:.3g}")
+    print("knobs: every knob within its limits and the planted fault caught ok")
+    return results
 
 
 def multi_rank_steps(mesh: Mesh, batch: dict[str, torch.Tensor], steps: int,
@@ -1778,20 +2395,29 @@ KERNEL_GROUPS = (  # first match names a device kernel's group
 def profile_kernels(run, reps: int) -> tuple[list[tuple[float, int, str]], float]:
     """(device us, launches, name) of every kernel that ``reps`` calls of
     ``run`` launch (torch.profiler), largest first, and the profiled
-    window's wall time in us."""
+    window's wall time in us. One more call of ``run`` goes first, in the
+    profiler's warm-up step, whose records are dropped: a window that
+    starts the tracing itself may lose the first kernels it launches (on
+    an H100 once a K2 of five live frames: 19 of 20)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    window_us = (time.perf_counter() - t0) * 1e6
+        window_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # The schedule's step is also an annotation on the device's timeline.
+        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
@@ -1802,25 +2428,27 @@ def profile_kernels(run, reps: int) -> tuple[list[tuple[float, int, str]], float
 
 
 def phase_profile(runner, state, label: str = "profile") -> None:
-    """Device time by kernel over 2 steps (torch.profiler), grouped, and the
-    device's busy share of the profiled window; lines start with ``label``."""
-    rows, window_us = profile_kernels(lambda: runner(state), 2)
+    """Device time by kernel over one step (torch.profiler, after one in its
+    warm-up), grouped, and the device's busy share of the profiled window;
+    lines start with ``label``."""
+    rows, window_us = profile_kernels(lambda: runner(state), 1)
     total = sum(r[0] for r in rows)
     if total <= 0:
         print(f"{label}: torch.profiler recorded no device kernel time")
         return
-    print(f"{label} (2 steps, profiler on): kernels {total / 2e3:.2f} ms/step of a "
-          f"{window_us / 2e3:.2f} ms/step window, device busy {100 * total / window_us:.1f}%")
+    print(f"{label} (1 step after 1 in the profiler's warm-up): kernels {total / 1e3:.2f} "
+          f"ms/step of a {window_us / 1e3:.2f} ms/step window, device busy "
+          f"{100 * total / window_us:.1f}%")
     groups: dict[str, float] = {}
     for dev, _, key in rows:
         name = next((g for g, subs in KERNEL_GROUPS if any(s in key for s in subs)), "other")
         groups[name] = groups.get(name, 0.0) + dev
     print(f"{label}: by group " + ", ".join(
-        f"{g} {t / 2e3:.2f} ms ({100 * t / total:.1f}%)"
+        f"{g} {t / 1e3:.2f} ms ({100 * t / total:.1f}%)"
         for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
     for dev, count, key in rows[:10]:
-        print(f"{label}:   {dev / 2e3:8.3f} ms/step  {100 * dev / total:5.1f}%  "
-              f"x{count // 2:<4d} {key[:80]}")
+        print(f"{label}:   {dev / 1e3:8.3f} ms/step  {100 * dev / total:5.1f}%  "
+              f"x{count:<4d} {key[:80]}")
 
 
 def graph_count() -> int:
@@ -2118,9 +2746,11 @@ def run_all(caches: Path) -> int:
     mark("predict")
     # The same path compiled, as the trainer's --compile runs it.
     compiled = phase_compiled(images, targets, ms_step)
+    mark(f"compiled main path ({compiled['cold_s']:.1f} s the cold compile)")
+    knobs = phase_knobs(images, targets)
     del images, targets
     torch.backends.cudnn.benchmark = False
-    mark(f"compiled main path ({compiled['cold_s']:.1f} s the cold compile)")
+    mark("knobs")
 
     # The kernel alone at the main path's shape and config (bf16 out).
     cfg = AugmentConfig()
@@ -2220,6 +2850,11 @@ def run_all(caches: Path) -> int:
         mark("spatial")
         cache = phase_compile_cache(Path(tmp), caches)
         mark("compile cache")
+        # After the trainer's compile cache: a process saves, at each save,
+        # only the artifacts recorded since its last one (parallel/
+        # aot_cache.py), so the serving blobs come after the trainer's.
+        compiled_serving = phase_compiled_serving(Path(tmp), last_pt, caches)
+        mark("compiled serving")
     # K2 in float32, as serving runs it, at batch 30 and batch 1.
     serving_pool = {f"batch{n}": phase_pool_timing(SERVE_POOL_SHAPES[n], torch.float32,
                                                    backward=False)["K2"]
@@ -2231,7 +2866,11 @@ def run_all(caches: Path) -> int:
         f"{compiled['cold_s']:.1f} s, trainer CLI in this process "
         + ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in cache["first"].items())
         + ", in a second process from the blob "
-        + ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in cache["second"].items()))
+        + ", ".join(f"{k} {r['seconds']:.1f} s" for k, r in cache["second"].items())
+        + "; serving compiles cold " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in compiled_serving["cold"].items())
+        + ", from the blob in a second process " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in compiled_serving["from_blob"].items()))
 
     # K2/K3: sums over the main path's four pool shapes (per-shape figures
     # on the "pool timing:" lines); the library call is F.max_pool2d with
@@ -2254,9 +2893,13 @@ def run_all(caches: Path) -> int:
         })
     for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3")):
         kernel["compiled_launches"] = compiled["launches"][name]
+        kernel["knob_launches"] = {knob: r["counts"][name] for knob, r in knobs.items()}
     # K2 also runs every serving forward (float32): its launches there and
     # its times at the serving shapes, summed over the four levels.
     kernels[-2]["serving_launches"] = serving_k2
+    # The compiled serving forwards: the kernel's launch counter and, for the
+    # live engine, the profiler's count (CUDA graph replays run no counter).
+    kernels[-2]["serving_compiled_launches"] = compiled_serving["k2"]
     kernels[-2]["serving_f32"] = serving_pool
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,5 @@
-"""Device selection shared by the port's entry points, the number of ranks a
-process starts, and the refusal of the one command-line flag whose mechanism
-the port does not have yet: the serving CLIs' compile-cache directory (their
-forwards are not compiled)."""
+"""Device selection shared by the port's entry points, and the number of
+ranks a process starts."""
 
 from __future__ import annotations
 
@@ -61,20 +59,3 @@ def local_rank_count(
             "rank needs a card of its own"
         )
     return wanted
-
-
-def unported_refusals(*, aot_cache: str = "off") -> list[tuple[bool, str]]:
-    """(refused, what) for the serving CLIs, whose forwards are not compiled
-    yet: a compile-cache directory."""
-    return [
-        (aot_cache not in ("auto", "off"),
-         f"--aot-cache {aot_cache}: compiling the serving forwards and their compile "
-         "cache (ROADMAP Queue 1 item 13); they run eagerly, so only 'auto' and "
-         "'off' are accepted"),
-    ]
-
-
-def raise_refused(refusals: list[tuple[bool, str]]) -> None:
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"not ported yet: {what}")

@@ -13,9 +13,17 @@ metrics (mae/rmse/nll/sigma over valid pixels) and prints one JSON line. The
 model runs in float32 with its running BatchNorm statistics, as the JAX CLI
 builds it.
 
-The tail batch is not padded: eval-mode BatchNorm treats each sample on its
-own and every metric is a masked sum, so a short last batch gives the metrics
-the JAX CLI's padded one gives.
+The tail batch is padded to the batch size with rows flagged invalid, as the
+JAX CLI pads it (``parallel/mesh.py::pad_batch_to``): eval-mode BatchNorm
+treats each sample on its own and every metric is a masked sum, so the
+metrics are those of the samples, and every batch has one shape.
+
+``--compile`` runs the eval forward through ``torch.compile`` (one graph for
+the pass, the tail included), as the trainer's ``--compile`` does; with
+``--aot-cache`` (``auto``: ``<output-dir>/.aot_cache``) a later process
+loads Inductor's compile artifacts from the blob the first one saved
+(``parallel/aot_cache.py``). Eager is the default: a cold compile costs
+tens of seconds, which a short evaluation never earns back.
 
 ``--mesh-devices N`` scores on N ranks, one GPU each, as the JAX CLI shards
 over N devices: each rank fetches its block of every batch, padded with
@@ -33,16 +41,18 @@ import json
 from pathlib import Path
 from typing import Any
 
-from .._device import local_rank_count, raise_refused, resolve_cli_device, unported_refusals
+from .._device import local_rank_count, resolve_cli_device
 from ..data.dataset import StereoSampleLoader
 from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
 from ..data.samples import discover_samples, split_samples
 from ..models.unet import StereoUNet
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
+from ..parallel.aot_cache import compile_cache_for
 from ..parallel.distributed import MultihostBatcher, is_main_process, run_ranks
-from ..parallel.mesh import Mesh
-from ..parallel.train_step import TrainState, make_eval_step
+from ..parallel.mesh import Mesh, pad_batch_to
+from ..parallel.train_step import TrainState, compile_model, compile_options_from, make_eval_step
 from ..training.checkpoint import load_model_variables, resolve_checkpoint_path
+from ..training.config import add_compile_arguments
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,15 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Shard image height over this many of the ranks "
                              "(a (ranks / N, N) mesh); it must divide them.")
     parser.add_argument("--aot-cache", type=str, default="auto",
-                        help="The JAX CLI's executable cache; this forward runs "
-                             "eagerly (compiled serving is ROADMAP Queue 1 item "
-                             "13), so only 'auto' or 'off' are taken.")
+                        help="Compile cache of --compile across processes: "
+                             "'auto' = <output-dir>/.aot_cache, 'off', or a "
+                             "directory. Unused without --compile.")
+    add_compile_arguments(parser, "one graph for the eval forward")
     return parser
 
 
 def evaluate(args: argparse.Namespace) -> dict[str, Any]:
     device = resolve_cli_device(args.device)
-    raise_refused(unported_refusals(aot_cache=args.aot_cache))
     local = local_rank_count(device, args.mesh_devices)
     return run_ranks(evaluate_rank, (args,), device=device, local_ranks=local,
                      spatial=args.spatial_devices)
@@ -115,24 +125,38 @@ def evaluate_rank(mesh: Mesh, args: argparse.Namespace) -> dict[str, Any]:
                        spatial_group=mesh.spatial_group)
     ckpt_meta = load_model_variables(checkpoint_path, model)
     # The eval step reads only the model; nothing here trains.
-    state = TrainState(model=model, optimizer=None, generator=None)
+    options = compile_options_from(args)
+    state = TrainState(model=model.eval(), optimizer=None, generator=None,
+                       compiled=None if options is None else compile_model(model, options))
     eval_step = make_eval_step(mesh)
+    cache = None
+    if options is not None:
+        cache = compile_cache_for(args.aot_cache, args.output_dir, {
+            "cli": "evaluate", "compile_mode": options.mode, "compile_backend": options.backend,
+            "base_channels": args.base_channels, "compute_dtype": "float32",
+            "batch_size": args.batch_size, "height": args.height, "width": args.width,
+            "ranks": mesh.world_size, "rank": mesh.rank, "spatial": mesh.spatial,
+        }, device, verbose=is_main_process())
+    if cache is not None:
+        cache.load()
+        eval_step = cache.wrap(eval_step, "eval step")
 
     loader = StereoSampleLoader(
         samples, image_size=(args.height, args.width),
         cache_root=args.cache_root, require_cache=args.require_cache,
     )
     fetch = loader_fetch(loader, num_workers=args.num_workers)
-    if mesh.distributed:
-        fetch = MultihostBatcher(fetch, mesh)
+    put = cuda_put(device, lambda batch: pad_batch_to(batch, args.batch_size))
+    if mesh.distributed:  # this rank's block of the global batch, padded
+        fetch = MultihostBatcher(fetch, mesh, pad_to=args.batch_size)
+        put = cuda_put(device)
     total: LossStats | None = None
-    batches = prefetch_to_device(
-        batch_iterator(fetch, len(loader), args.batch_size),
-        put=cuda_put(device),
-    )
+    batches = prefetch_to_device(batch_iterator(fetch, len(loader), args.batch_size), put=put)
     for batch in batches:
         total = accumulate_stats(total, eval_step(state, batch))
     assert total is not None
+    if cache is not None:
+        cache.finish()
     metrics = metrics_from_stats(total)
     result = {
         "checkpoint": str(checkpoint_path),
@@ -142,6 +166,8 @@ def evaluate_rank(mesh: Mesh, args: argparse.Namespace) -> dict[str, Any]:
         "valid_pixels": int(total.valid_count),
         **{k: round(v, 6) for k, v in metrics.items()},
     }
+    if cache is not None:
+        result["compile_cache"] = cache.reports
     if is_main_process():
         print(json.dumps(result))
     return result

@@ -22,6 +22,11 @@ forward then runs at one shape, so a pair's output does not depend on the
 batch it falls in: the convolutions' algorithms (cuDNN's, oneDNN's) are
 chosen by batch size, and a tail of one pair unpadded lands a float16 ulp
 away in places. Prints one JSON summary line.
+
+``--compile`` runs the forward through ``torch.compile`` (one graph: every
+batch has the one shape), and ``--aot-cache`` (``auto``:
+``<predictions-dir>/.aot_cache``) carries its compile artifacts to later
+processes, as evaluate's do. Eager is the default.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from .._device import raise_refused, resolve_cli_device, unported_refusals
+from .._device import resolve_cli_device
 from ..data.samples import discover_samples, split_samples
 from ..models.unet import StereoUNet
 from ..ops.geometry import (
@@ -46,8 +51,10 @@ from ..ops.geometry import (
     scale_focal_to_model,
 )
 from ..ops.resize import resize_bilinear_np
-from ..parallel.train_step import make_predict_fn
+from ..parallel.aot_cache import compile_cache_for
+from ..parallel.train_step import compile_model, compile_options_from, make_predict_fn
 from ..training.checkpoint import load_model_variables, resolve_checkpoint_path
+from ..training.config import add_compile_arguments
 from .preview import normalize_map
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg")
@@ -97,11 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "npz (focal scaled calib->model width, "
                              "baseline from P1/P2 or T).")
     parser.add_argument("--aot-cache", type=str, default="auto",
-                        help="The JAX CLI's executable cache; this forward runs "
-                             "eagerly (compiled serving is ROADMAP Queue 1 item "
-                             "13), so only 'auto' or 'off' are taken.")
+                        help="Compile cache of --compile across processes: "
+                             "'auto' = <predictions-dir>/.aot_cache, 'off', or a "
+                             "directory. Unused without --compile.")
     parser.add_argument("--device", type=str, default="auto",
                         help="auto (= cuda), cuda or cpu.")
+    add_compile_arguments(parser, "one graph for the forward")
     return parser
 
 
@@ -201,16 +209,27 @@ def _pairs(args: argparse.Namespace) -> list[tuple[str, Path, Path]]:
 
 def predict(args: argparse.Namespace) -> dict[str, Any]:
     device = resolve_cli_device(args.device)
-    raise_refused(unported_refusals(aot_cache=args.aot_cache))
     pairs = _pairs(args)
 
     checkpoint_path = resolve_checkpoint_path(
         args.output_dir, checkpoint=args.checkpoint, run_id=args.run_id,
         checkpoint_name=args.checkpoint_name,
     )
-    model = StereoUNet(base_channels=args.base_channels, device=device)
+    model = StereoUNet(base_channels=args.base_channels, device=device).eval()
     load_model_variables(checkpoint_path, model)
-    predict_fn = make_predict_fn(model)
+    options = compile_options_from(args)
+    predict_fn = make_predict_fn(
+        model, compiled=None if options is None else compile_model(model, options))
+    cache = None
+    if options is not None:
+        cache = compile_cache_for(args.aot_cache, args.predictions_dir, {
+            "cli": "predict", "compile_mode": options.mode, "compile_backend": options.backend,
+            "base_channels": args.base_channels, "compute_dtype": "float32",
+            "batch_size": args.batch_size, "height": args.height, "width": args.width,
+        }, device)
+    if cache is not None:
+        cache.load()
+        predict_fn = cache.wrap(predict_fn, "predict")
     hw = (args.height, args.width)
 
     geometry = None
@@ -248,6 +267,8 @@ def predict(args: argparse.Namespace) -> dict[str, Any]:
                 Image.fromarray(normalize_map(disp[i])).save(out_dir / f"{stem}_disparity.png")
             written += 1
     elapsed = time.perf_counter() - start
+    if cache is not None:
+        cache.finish()
 
     result = {
         "checkpoint": str(checkpoint_path),
@@ -257,6 +278,8 @@ def predict(args: argparse.Namespace) -> dict[str, Any]:
         "pairs_per_sec": round(written / elapsed, 2) if elapsed > 0 else None,
         "depth": geometry is not None,
     }
+    if cache is not None:
+        result["compile_cache"] = cache.reports
     print(json.dumps(result))
     return result
 

@@ -23,6 +23,13 @@ BatchNorm statistics (its four pools on kernel K2 on the card); the rectified
 views come back as uint8. The host decodes frames and draws. ``--input-dir``
 with ``--headless`` runs the same pipeline on stored frames and writes PNGs
 and JSON readouts. ``cv2`` is imported only by the camera, GUI and PNG paths.
+
+With ``--compile`` the device work after the upload (scale, rectify, resize,
+the StereoUNet and the uint8 views) is one ``torch.compile`` program, as the
+JAX viewer jits it; ``--compile-mode reduce-overhead`` replays it as a CUDA
+graph. ``--aot-cache`` (``auto``: ``<output-dir>/.aot_cache``) carries its
+compile artifacts to the next launch (``parallel/aot_cache.py``). Eager is
+the default.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .._device import raise_refused, resolve_cli_device, resolve_device, unported_refusals
+from .._device import resolve_cli_device, resolve_device
 from ..models.unet import StereoUNet
 from ..ops.geometry import (
     center_patch_median,
@@ -46,13 +53,15 @@ from ..ops.geometry import (
     scale_focal_to_model,
 )
 from ..ops.remap import Rectifier, remap_bilinear
-from ..ops.resize import resize_bilinear
-from ..parallel.train_step import make_predict_fn
+from ..ops.resize import resample_matrices, resize_bilinear_with
+from ..parallel.aot_cache import CompileCache, cache_digest, resolve_aot_dir
+from ..parallel.train_step import CompileOptions, compile_model, compile_options_from
 from ..training.checkpoint import (
     checkpoint_mtime_ns,
     load_model_variables,
     resolve_checkpoint_path,
 )
+from ..training.config import add_compile_arguments
 from .camera_setup import CaptureSettings
 from .io_sources import FrameSource, camera_source, directory_source
 
@@ -129,9 +138,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--ema-alpha", type=float, default=0.0,
                         help="Optional temporal smoothing in [0,1]; 0 disables.")
     parser.add_argument("--aot-cache", type=str, default="auto",
-                        help="The JAX CLI's executable cache; this forward runs "
-                             "eagerly (compiled serving is ROADMAP Queue 1 item "
-                             "13), so only 'auto' or 'off' are taken.")
+                        help="Compile cache of --compile across processes: "
+                             "'auto' = <output-dir>/.aot_cache, 'off', or a "
+                             "directory. Unused without --compile.")
+    add_compile_arguments(parser, "one program for a frame's rectify, resize and "
+                                  "forward; reduce-overhead replays it as a CUDA graph")
     return parser.parse_args(argv)
 
 
@@ -140,7 +151,12 @@ class LiveDepthEngine:
 
     ``process`` is the four stages in order (``upload``, ``preprocess``,
     ``forward``, ``download``); they are methods of their own so that a
-    caller can time each."""
+    caller can time each. With ``compile`` the three after the upload run as
+    one compiled program (``compile_model`` of ``_frame``); the resize
+    matrices and the rectification maps are built outside it and passed in.
+    With ``compile_cache`` (a directory) the program's compile artifacts are
+    loaded from, and saved to, a blob there keyed by the frame setting; its
+    report is ``self.compile_cache.reports``."""
 
     def __init__(
         self,
@@ -148,6 +164,8 @@ class LiveDepthEngine:
         rectifier: Rectifier | None,
         device: str | torch.device = "cuda",
         base_channels: int = 32,
+        compile: CompileOptions | None = None,
+        compile_cache: Path | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model = StereoUNet(
@@ -160,16 +178,22 @@ class LiveDepthEngine:
                 f"The rectifier's maps are on {rectifier.map_l_x.device}, the engine "
                 f"runs on {model_device}."
             )
-        self._predict = make_predict_fn(self.model)
         self.model_size = model_size
         self.rectifier = rectifier
         self.uncertainty_available = False
         self.loaded_epoch = -1
+        self.base_channels = base_channels
+        self.compile = compile
+        self._program = None if compile is None else compile_model(self._frame, compile)
+        self.compile_cache_dir = None if compile is None else compile_cache
+        self.compile_cache: CompileCache | None = None
 
     def load_checkpoint(self, checkpoint_path: Path) -> tuple[int, bool]:
         """(Re)load weights; returns (epoch, has_uncertainty_head). Every
         shape is checked before anything is copied, so a load that raises
-        leaves the weights in use as they were."""
+        leaves the weights in use as they were. The weights are copied into
+        the model's own tensors, which a compiled program (and its CUDA
+        graph) reads, so a reload recompiles nothing."""
         meta = load_model_variables(checkpoint_path, self.model)
         self.loaded_epoch = int(meta.get("epoch", -1))
         missing = meta.get("missing_keys", [])
@@ -190,18 +214,40 @@ class LiveDepthEngine:
             for frame in (frame_l_bgr, frame_r_bgr)
         )
 
+    def _inputs(self, left_u8: torch.Tensor) -> tuple:
+        """The rectification maps (or None) and the resize matrices (or None)
+        for captures of ``left_u8``'s size."""
+        r = self.rectifier
+        maps = None if r is None else (r.map_l_x, r.map_l_y, r.map_r_x, r.map_r_y)
+        w, h = self.model_size
+        return maps, resample_matrices(tuple(left_u8.shape[:2]), (h, w), self.device)
+
+    @staticmethod
+    def _preprocess(left_u8, right_u8, maps, matrices) -> tuple[torch.Tensor, torch.Tensor]:
+        left = left_u8.to(torch.float32) * (1.0 / 255.0)
+        right = right_u8.to(torch.float32) * (1.0 / 255.0)
+        if maps is not None:
+            left = remap_bilinear(left, maps[0], maps[1])
+            right = remap_bilinear(right, maps[2], maps[3])
+        return resize_bilinear_with(left, matrices), resize_bilinear_with(right, matrices)
+
+    def _forward(self, left: torch.Tensor, right: torch.Tensor):
+        disp, logvar = self.model(torch.cat([left, right], dim=-1)[None],
+                                  return_uncertainty=True)
+        left_view = (left.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        right_view = (right.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        return disp[0, ..., 0], logvar[0, ..., 0], left_view, right_view
+
+    def _frame(self, left_u8, right_u8, maps, matrices):
+        """The compiled program: preprocess then forward."""
+        return self._forward(*self._preprocess(left_u8, right_u8, maps, matrices))
+
     def preprocess(
         self, left_u8: torch.Tensor, right_u8: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """uint8 RGB at capture size -> float32 RGB in [0, 1] at model size:
         scaled, rectified at capture size, then resized."""
-        left = left_u8.to(torch.float32) * (1.0 / 255.0)
-        right = right_u8.to(torch.float32) * (1.0 / 255.0)
-        if self.rectifier is not None:
-            left = remap_bilinear(left, self.rectifier.map_l_x, self.rectifier.map_l_y)
-            right = remap_bilinear(right, self.rectifier.map_r_x, self.rectifier.map_r_y)
-        w, h = self.model_size
-        return resize_bilinear(left, (h, w)), resize_bilinear(right, (h, w))
+        return self._preprocess(left_u8, right_u8, *self._inputs(left_u8))
 
     @torch.inference_mode()
     def forward(
@@ -210,10 +256,27 @@ class LiveDepthEngine:
         """Model-size views -> (disparity HW, logvar HW, the views as uint8),
         on the device. The views are truncated to uint8 as the display path
         truncates them: they exist only for the display."""
-        disp, logvar = self._predict(torch.cat([left, right], dim=-1)[None])
-        left_view = (left.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-        right_view = (right.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-        return disp[0], logvar[0], left_view, right_view
+        return self._forward(left, right)
+
+    @torch.inference_mode()
+    def run_compiled(self, left_u8: torch.Tensor, right_u8: torch.Tensor):
+        """``preprocess`` and ``forward`` as the one compiled program. Under
+        CUDA graphs its outputs are overwritten by the next call: a caller
+        keeps them only by copying them first (``download`` does)."""
+        first = self.compile_cache_dir is not None and self.compile_cache is None
+        if first:  # the blob's key holds the capture size, known from here
+            self.compile_cache = CompileCache(self.compile_cache_dir, cache_digest({
+                "cli": "live", "compile_mode": self.compile.mode,
+                "compile_backend": self.compile.backend, "base_channels": self.base_channels,
+                "model_size": tuple(self.model_size), "capture": tuple(left_u8.shape),
+                "rectify": self.rectifier is not None,
+            }, self.device), verbose=True)
+            self.compile_cache.load()
+            self._program = self.compile_cache.wrap(self._program, "live frame")
+        out = self._program(left_u8, right_u8, *self._inputs(left_u8))
+        if first:
+            self.compile_cache.finish()
+        return out
 
     @staticmethod
     def download(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
@@ -223,8 +286,10 @@ class LiveDepthEngine:
         self, frame_l_bgr: np.ndarray, frame_r_bgr: np.ndarray
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """BGR frames -> (disparity HW, logvar HW, rectified views as uint8 RGB)."""
-        return self.download(*self.forward(*self.preprocess(*self.upload(
-            frame_l_bgr, frame_r_bgr))))
+        frames = self.upload(frame_l_bgr, frame_r_bgr)
+        if self._program is not None:
+            return self.download(*self.run_compiled(*frames))
+        return self.download(*self.forward(*self.preprocess(*frames)))
 
 
 class CheckpointWatcher:
@@ -335,7 +400,6 @@ def main(argv: list[str] | None = None) -> None:
     if not 0.0 <= args.ema_alpha <= 1.0:
         raise ValueError("--ema-alpha must be in [0, 1].")
     device = resolve_cli_device(args.device)
-    raise_refused(unported_refusals(aot_cache=args.aot_cache))
 
     model_size = (args.model_width, args.model_height)
     checkpoint_path = resolve_checkpoint_path(
@@ -368,7 +432,11 @@ def main(argv: list[str] | None = None) -> None:
     baseline_m = calibration_baseline_m
     depth_enabled = baseline_m is not None and focal_length_px_model is not None
 
-    engine = LiveDepthEngine(model_size, rectifier, device, base_channels=args.base_channels)
+    options = compile_options_from(args)
+    engine = LiveDepthEngine(
+        model_size, rectifier, device, base_channels=args.base_channels, compile=options,
+        compile_cache=resolve_aot_dir(args.aot_cache, args.output_dir),
+    )
     loaded_epoch, uncertainty_available = engine.load_checkpoint(checkpoint_path)
     watcher = (
         CheckpointWatcher(engine, checkpoint_path, args.checkpoint_poll_sec)

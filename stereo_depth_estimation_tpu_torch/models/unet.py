@@ -1,8 +1,7 @@
 """StereoUNet: 4-level encoder-decoder with dual disparity/log-variance heads.
 
-Counterpart of ``stereo_depth_estimation_tpu/models/unet.py`` on its default
-path (``skip_impl="concat"``, ``fused_block=False``, ``remat=False``):
-ConvBlock = (Conv3x3 no-bias -> BatchNorm -> ReLU) x2; 6->32->64->128->256->512
+Counterpart of ``stereo_depth_estimation_tpu/models/unet.py``: ConvBlock =
+(Conv3x3 no-bias -> BatchNorm -> ReLU) x2; 6->32->64->128->256->512
 channels at ``base_channels=32``; 2x2 max-pool down (``ops/pool.py``: the
 CUDA kernels K2/K3 on the card); 2x2 stride-2 ConvTranspose
 (with bias) up, then a skip concat; 1x1 ``softplus`` disparity head and 1x1
@@ -11,7 +10,7 @@ base 32.
 
 Parameter names are the reference PyTorch model's (``enc1.block.0.weight``,
 ``up4.weight``, ``disparity_head.weight``, ...), so a reference ``.pt``
-state_dict loads as it is.
+state_dict loads as it is, whatever the knobs below.
 
 ``forward`` takes and returns the JAX package's NHWC layout; inside, the NHWC
 tensor is viewed as NCHW, which is the ``channels_last`` memory format, so no
@@ -37,16 +36,42 @@ the skip concatenations and the 1x1 heads are local to a stripe. With
 ``bn_group`` the world group, the BatchNorm statistics are global over data
 rows and stripes. The parameter names stay ``nn.Conv2d``'s. Without a
 spatial group none of this runs.
+
+The JAX model's off-default knobs, each with the same parameters and
+names (none is reached by a CLI; they are execution strategies measured on
+the card):
+
+- ``bn_stats_dtype``: the training batch mean and E[x^2] are reduced in
+  that dtype, then cast to float32 (``MeshBatchNorm2d``, var =
+  E[x^2] - E[x]^2); running statistics and the scale stay float32.
+- ``skip_impl``: how a decoder block's first convolution takes the
+  up-path and skip tensors. ``"concat"`` concatenates them and convolves;
+  ``"split"`` sums two half-kernel convolutions; ``"hybrid"`` convolves
+  the concatenation and computes the two input gradients with half-kernel
+  data-gradient convolutions, never forming the concatenation's gradient
+  (``_ConcatConv``). The weight stays one full-width parameter.
+- ``fused_block``: each training conv3x3 -> batch-stat BatchNorm -> ReLU
+  is one autograd function (``_FusedConvBNReLU``) that saves only the
+  pre-BatchNorm output, the input, the (C,) statistics and the affine, and
+  recomputes the ReLU mask and the normalised values in its backward. Not
+  with ``skip_impl`` "split" or "hybrid", as in the JAX package.
+- ``remat``: each ConvBlock is recomputed in the backward
+  (``torch.utils.checkpoint``); the recompute leaves the BatchNorm running
+  statistics as the forward left them, as Flax discards the recompute's
+  updates.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.halo import SpatialGroup
@@ -71,51 +96,79 @@ class _AllReduceSum(torch.autograd.Function):
         return grad, None
 
 
+def _moment_sums(x: torch.Tensor, stats_dtype: torch.dtype) -> torch.Tensor:
+    """float32 (2C + 1,): the per-channel sum and sum of squares of NCHW
+    ``x`` and the element count per channel. In float32 the sums are
+    reduced directly; in a lower ``stats_dtype`` they are the count times
+    the mean and the mean square, each computed as the JAX BatchNorm does:
+    the squares and the means rounded to that dtype (the means accumulate
+    in float32), then cast to float32."""
+    n = x.numel() // x.shape[1]
+    count = torch.full((1,), n, dtype=torch.float32, device=x.device)
+    if stats_dtype == torch.float32:
+        xf = x.float()
+        return torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count])
+    xs = x.to(stats_dtype)
+    means = torch.cat([xs.mean(dim=(0, 2, 3)), (xs * xs).mean(dim=(0, 2, 3))]).float()
+    return torch.cat([means * n, count])
+
+
+def _moments(total: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, var, n) from ``_moment_sums``' layout; var = E[x^2] - E[x]^2."""
+    n = total[2 * c]
+    mean = total[:c] / n
+    return mean, total[c : 2 * c] / n - mean * mean, n
+
+
+@torch.no_grad()
+def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                    n: torch.Tensor) -> None:
+    """nn.BatchNorm2d's running update from batch statistics: the biased
+    ``var`` of ``n`` elements goes in unbiased."""
+    bn.num_batches_tracked.add_(1)
+    unbiased = var * (n / (n - 1.0).clamp(min=1.0))
+    m = bn.momentum
+    bn.running_mean.mul_(1.0 - m).add_(m * mean)
+    bn.running_var.mul_(1.0 - m).add_(m * unbiased)
+
+
 class MeshBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm whose training statistics are global over a group of ranks,
-    computed as the JAX BatchNorm computes them
-    (``stereo_depth_estimation_tpu/models/unet.py:64-79``): one all-reduce of
-    the per-channel float32 sum and sum of squares and the element count,
-    var = E[x^2] - E[x]^2, normalised in float32 and returned in the input's
-    dtype; the unbiased factor n/(n-1) of the running variance takes the
-    global n. Eval mode uses the running statistics and no collective.
+    """BatchNorm whose training statistics are computed as the JAX BatchNorm
+    computes them (``stereo_depth_estimation_tpu/models/unet.py:64-79``): the
+    per-channel sum and sum of squares reduced in ``stats_dtype`` (the JAX
+    model's ``bn_stats_dtype``) and cast to float32, var = E[x^2] - E[x]^2,
+    normalised in float32 and returned in the input's dtype. With ``group``
+    (several ranks) the sums and the element count are all-reduced, so the
+    statistics are global over the group, and the unbiased factor n/(n-1) of
+    the running variance takes the global n. Eval mode uses the running
+    statistics and no collective.
 
     Not ``nn.SyncBatchNorm``: it refuses CPU tensors and gathers with
     ``all_gather``, which gloo does not run on CUDA tensors; this module
     needs only ``all_reduce``."""
 
-    def __init__(self, num_features: int, group) -> None:
+    def __init__(self, num_features: int, group=None,
+                 stats_dtype: torch.dtype = torch.float32) -> None:
         super().__init__(num_features)
         self.group = group
+        self.stats_dtype = stats_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        c = self.num_features
-        xf = x.float()
-        local = torch.cat([
-            xf.sum(dim=(0, 2, 3)),
-            (xf * xf).sum(dim=(0, 2, 3)),
-            xf.new_full((1,), xf.numel() // c),
-        ])
-        total = _AllReduceSum.apply(local, self.group)
-        n = total[2 * c]
-        mean = total[:c] / n
-        var = total[c : 2 * c] / n - mean * mean
-        with torch.no_grad():
-            self.num_batches_tracked.add_(1)
-            unbiased = var * (n / (n - 1.0).clamp(min=1.0))
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(m * unbiased)
+        total = _moment_sums(x, self.stats_dtype)
+        if self.group is not None:
+            total = _AllReduceSum.apply(total, self.group)
+        mean, var, n = _moments(total, self.num_features)
+        _update_running(self, mean, var, n)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[None, :, None, None]) * inv[None, :, None, None]
+        y = (x.float() - mean[None, :, None, None]) * inv[None, :, None, None]
         return (y + self.bias[None, :, None, None]).to(x.dtype)
 
 
-def _batch_norm(channels: int, group) -> nn.BatchNorm2d:
-    if group is not None and dist.get_world_size(group) > 1:
-        return MeshBatchNorm2d(channels, group)
+def _batch_norm(channels: int, group, stats_dtype: torch.dtype) -> nn.BatchNorm2d:
+    if group is not None or stats_dtype != torch.float32:
+        return MeshBatchNorm2d(channels, group, stats_dtype)
     return nn.BatchNorm2d(channels)
 
 
@@ -129,10 +182,7 @@ class HaloConv2d(nn.Conv2d):
         self.spatial = spatial
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # (N, C, h, W) channels_last is (N, h, W, C) in memory: the halo rows
-        # are concatenated there and viewed back without a copy.
-        padded = self.spatial.pad(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        return super().forward(padded)
+        return super().forward(_padded(self, x))
 
 
 def _conv3x3(in_channels: int, out_channels: int,
@@ -142,23 +192,183 @@ def _conv3x3(in_channels: int, out_channels: int,
     return nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
 
 
+def _padded(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``x`` with the halo rows ``conv`` convolves over (a ``HaloConv2d``),
+    else ``x``: what ``F.conv2d`` with ``conv.padding`` takes. (N, C, h, W)
+    channels_last is (N, h, W, C) in memory: the halo rows are concatenated
+    there and viewed back without a copy."""
+    if isinstance(conv, HaloConv2d):
+        return conv.spatial.pad(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    return x
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype autocast runs convolutions in, else ``x``'s."""
+    kind = x.device.type
+    return torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
+
+
+def _conv_grads(dz, x, weight, padding) -> tuple[torch.Tensor, torch.Tensor]:
+    """The data and filter gradients of ``F.conv2d(x, weight, padding=...)``
+    (stride 1, no bias) for the output gradient ``dz``."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dz, x, weight, None, [1, 1], list(padding), [1, 1], False, [0, 0], 1,
+        [True, True, False])
+    return dx, dw
+
+
+class _ConcatConv(torch.autograd.Function):
+    """``conv2d(cat([up, skip]), weight)`` whose backward takes the two input
+    gradients straight from half-kernel data-gradient convolutions (and the
+    weight's as two half filter gradients), never forming the (N, 2C, H, W)
+    gradient of the concatenation: JAX ``_concat_conv``. The weight is cast
+    to the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, up, skip, weight, padding):
+        ctx.save_for_backward(up, skip, weight)
+        ctx.padding = padding
+        return F.conv2d(torch.cat([up, skip], dim=1), weight.to(up.dtype), padding=padding)
+
+    @staticmethod
+    def backward(ctx, dz):
+        up, skip, weight = ctx.saved_tensors
+        xc = up.shape[1]
+        w = weight.to(up.dtype)
+        d_up, dw_up = _conv_grads(dz, up, w[:, :xc], ctx.padding)
+        d_skip, dw_skip = _conv_grads(dz, skip, w[:, xc:], ctx.padding)
+        return d_up, d_skip, torch.cat([dw_up, dw_skip], dim=1).to(weight.dtype), None
+
+
+class _FusedConvBNReLU(torch.autograd.Function):
+    """Training conv3x3 -> batch-stat BatchNorm -> ReLU: JAX
+    ``_fused_conv_bn_relu``. Returns the activation and the batch's (mean,
+    var, n) for the running update. It saves only the pre-BatchNorm output
+    ``z``, the input, the weight, the (C,) statistics and the affine; the
+    backward recomputes the ReLU mask and the centred ``z`` and feeds one
+    gradient to the convolution's data and filter gradients. With ``group``
+    the statistics' sums, and in the backward the two (C,) gradient sums,
+    are all-reduced (the weight and bias gradients stay this rank's share,
+    as ``MeshBatchNorm2d``'s do)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, gamma, beta, padding, eps, stats_dtype, group):
+        z = F.conv2d(x, weight.to(x.dtype), padding=padding)
+        total = _moment_sums(z, stats_dtype)
+        if group is not None:
+            dist.all_reduce(total, group=group)
+        mean, var, n = _moments(total, z.shape[1])
+        y = torch.relu(_bn_affine(z, mean, var, gamma, beta, eps)).to(z.dtype)
+        ctx.save_for_backward(x, weight, z, mean, var, gamma, beta, n)
+        ctx.padding, ctx.eps, ctx.group = padding, eps, group
+        ctx.mark_non_differentiable(mean, var, n)
+        return y, mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        x, weight, z, mean, var, gamma, beta, n = ctx.saved_tensors
+        inv = torch.rsqrt(var + ctx.eps)
+        g = (gamma * inv)[None, :, None, None]
+        zc = z.float() - mean[None, :, None, None]
+        pre = _bn_affine(z, mean, var, gamma, beta, ctx.eps)  # the forward's, bitwise
+        dyp = torch.where(pre > 0, dy.float(), 0.0)
+        local = torch.cat([dyp.sum(dim=(0, 2, 3)), (dyp * zc).sum(dim=(0, 2, 3))])
+        total = local
+        if ctx.group is not None:
+            total = local.clone()
+            dist.all_reduce(total, group=ctx.group)
+        c = z.shape[1]
+        dbeta, dgamma = total[:c], total[c:] * inv
+        t1 = g * (dbeta / n)[None, :, None, None]
+        t2 = g * (inv * dgamma / n)[None, :, None, None]
+        dz = (dyp * g - t1 - zc * t2).to(z.dtype)
+        dx, dw = _conv_grads(dz, x, weight.to(x.dtype), ctx.padding)
+        return (dx, dw.to(weight.dtype), local[c:] * inv, local[:c],
+                None, None, None, None)
+
+
+def _bn_affine(z, mean, var, gamma, beta, eps) -> torch.Tensor:
+    """float32 (z - mean) * gamma / sqrt(var + eps) + beta, per channel."""
+    inv = torch.rsqrt(var + eps) * gamma
+    return ((z.float() - mean[None, :, None, None]) * inv[None, :, None, None]
+            + beta[None, :, None, None])
+
+
 class ConvBlock(nn.Module):
-    """(Conv3x3 no-bias -> BatchNorm -> ReLU) x2."""
+    """(Conv3x3 no-bias -> BatchNorm -> ReLU) x2. ``forward(x, skip)`` of a
+    decoder block takes the up-path and the skip tensors, joined as
+    ``skip_impl`` says; ``fused`` runs each training conv -> BN -> ReLU as
+    ``_FusedConvBNReLU``. The modules are those of the default block (the
+    reference's ``block.0`` ... ``block.5``) in every mode."""
 
     def __init__(self, in_channels: int, out_channels: int, bn_group=None,
-                 spatial_group: SpatialGroup | None = None) -> None:
+                 spatial_group: SpatialGroup | None = None, *,
+                 bn_stats_dtype: torch.dtype = torch.float32, fused: bool = False,
+                 skip_impl: str = "concat") -> None:
         super().__init__()
+        if skip_impl not in ("concat", "split", "hybrid"):
+            raise ValueError(f"skip_impl must be concat, split or hybrid, got {skip_impl!r}")
+        if fused and skip_impl != "concat":
+            raise ValueError(f"fused_block takes skip_impl 'concat' only, got {skip_impl!r} "
+                             "(as the JAX model asserts)")
+        group = bn_group if bn_group is not None and dist.get_world_size(bn_group) > 1 else None
         self.block = nn.Sequential(
             _conv3x3(in_channels, out_channels, spatial_group),
-            _batch_norm(out_channels, bn_group),
+            _batch_norm(out_channels, group, bn_stats_dtype),
             nn.ReLU(inplace=True),
             _conv3x3(out_channels, out_channels, spatial_group),
-            _batch_norm(out_channels, bn_group),
+            _batch_norm(out_channels, group, bn_stats_dtype),
             nn.ReLU(inplace=True),
         )
+        self.group = group
+        self.bn_stats_dtype = bn_stats_dtype
+        self.fused = fused
+        self.skip_impl = skip_impl
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block(x)
+    def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
+        if skip is not None and self.skip_impl == "concat":
+            x, skip = torch.cat([x, skip], dim=1), None
+        if self.fused and self.training:
+            for conv, bn in ((self.block[0], self.block[1]), (self.block[3], self.block[4])):
+                y, mean, var, n = _FusedConvBNReLU.apply(
+                    _padded(conv, x).to(_compute_dtype(x)), conv.weight, bn.weight, bn.bias,
+                    conv.padding, bn.eps, self.bn_stats_dtype, self.group)
+                _update_running(bn, mean, var, n)
+                x = y
+            return x
+        if skip is None:
+            return self.block(x)
+        conv0, xc = self.block[0], x.shape[1]
+        if self.skip_impl == "split":
+            z = (conv0._conv_forward(_padded(conv0, x), conv0.weight[:, :xc], None)
+                 + conv0._conv_forward(_padded(conv0, skip), conv0.weight[:, xc:], None))
+        else:
+            dtype = _compute_dtype(x)
+            z = _ConcatConv.apply(_padded(conv0, x).to(dtype), _padded(conv0, skip).to(dtype),
+                                  conv0.weight, conv0.padding)
+        return self.block[1:](z)
+
+
+class _KeepRunningStats:
+    """Context of a ConvBlock's recompute under ``remat``: the BatchNorm
+    running statistics (and batch counts) it finds are put back on exit, so
+    the recompute's second train-mode pass updates nothing."""
+
+    def __init__(self, block: nn.Module) -> None:
+        self.buffers = [b for m in block.modules() if isinstance(m, nn.BatchNorm2d)
+                        for b in (m.running_mean, m.running_var, m.num_batches_tracked)]
+
+    def __enter__(self) -> None:
+        self.saved = [b.clone() for b in self.buffers]
+
+    def __exit__(self, *exc) -> None:
+        with torch.no_grad():
+            for b, saved in zip(self.buffers, self.saved):
+                b.copy_(saved)
+
+
+def _remat_contexts(block: nn.Module):
+    return contextlib.nullcontext(), _KeepRunningStats(block)
 
 
 class StereoUNet(nn.Module):
@@ -172,34 +382,44 @@ class StereoUNet(nn.Module):
         generator: torch.Generator | None = None,
         bn_group=None,
         spatial_group: SpatialGroup | None = None,
+        bn_stats_dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        fused_block: bool = False,
+        skip_impl: str = "concat",
     ) -> None:
         """``generator`` (a CPU generator) re-draws every conv weight and bias
         from PyTorch's default distributions, so a seed fixes the weights.
         ``bn_group``: a ``torch.distributed`` group; with more than one rank
         the BatchNorm statistics are global over it (``MeshBatchNorm2d``).
         ``spatial_group``: with more than one rank the model runs on height
-        stripes (``HaloConv2d``)."""
+        stripes (``HaloConv2d``). ``bn_stats_dtype``, ``remat``,
+        ``fused_block`` and ``skip_impl``: the JAX model's knobs (module
+        docstring); ``fused_block`` with another ``skip_impl`` than
+        ``"concat"`` raises."""
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.compute_dtype = compute_dtype
+        self.remat = remat
         c1 = base_channels
         c2, c3, c4, c5 = c1 * 2, c1 * 4, c1 * 8, c1 * 16
-        self.enc1 = ConvBlock(in_channels, c1, bn_group, spatial_group)
-        self.enc2 = ConvBlock(c1, c2, bn_group, spatial_group)
-        self.enc3 = ConvBlock(c2, c3, bn_group, spatial_group)
-        self.enc4 = ConvBlock(c3, c4, bn_group, spatial_group)
-        self.bottleneck = ConvBlock(c4, c5, bn_group, spatial_group)
+        block = functools.partial(ConvBlock, bn_group=bn_group, spatial_group=spatial_group,
+                                  bn_stats_dtype=bn_stats_dtype, fused=fused_block)
+        self.enc1 = block(in_channels, c1)
+        self.enc2 = block(c1, c2)
+        self.enc3 = block(c2, c3)
+        self.enc4 = block(c3, c4)
+        self.bottleneck = block(c4, c5)
         self.up4 = nn.ConvTranspose2d(c5, c4, 2, stride=2)
-        self.dec4 = ConvBlock(c4 + c4, c4, bn_group, spatial_group)
+        self.dec4 = block(c4 + c4, c4, skip_impl=skip_impl)
         self.up3 = nn.ConvTranspose2d(c4, c3, 2, stride=2)
-        self.dec3 = ConvBlock(c3 + c3, c3, bn_group, spatial_group)
+        self.dec3 = block(c3 + c3, c3, skip_impl=skip_impl)
         self.up2 = nn.ConvTranspose2d(c3, c2, 2, stride=2)
-        self.dec2 = ConvBlock(c2 + c2, c2, bn_group, spatial_group)
+        self.dec2 = block(c2 + c2, c2, skip_impl=skip_impl)
         self.up1 = nn.ConvTranspose2d(c2, c1, 2, stride=2)
-        self.dec1 = ConvBlock(c1 + c1, c1, bn_group, spatial_group)
+        self.dec1 = block(c1 + c1, c1, skip_impl=skip_impl)
         # Both heads always exist (the reference model defines both).
         self.disparity_head = nn.Conv2d(c1, out_channels, 1)
         self.logvar_head = nn.Conv2d(c1, 1, 1)
@@ -247,15 +467,16 @@ class StereoUNet(nn.Module):
             dtype=torch.bfloat16,
             enabled=self.compute_dtype == torch.bfloat16,
         ):
-            s1 = self.enc1(x)
-            s2 = self.enc2(max_pool_2x2(s1))
-            s3 = self.enc3(max_pool_2x2(s2))
-            s4 = self.enc4(max_pool_2x2(s3))
-            b = self.bottleneck(max_pool_2x2(s4))
-            d4 = self.dec4(torch.cat([self.up4(b), s4], dim=1))
-            d3 = self.dec3(torch.cat([self.up3(d4), s3], dim=1))
-            d2 = self.dec2(torch.cat([self.up2(d3), s2], dim=1))
-            d1 = self.dec1(torch.cat([self.up1(d2), s1], dim=1))
+            run = self._run
+            s1 = run(self.enc1, x)
+            s2 = run(self.enc2, max_pool_2x2(s1))
+            s3 = run(self.enc3, max_pool_2x2(s2))
+            s4 = run(self.enc4, max_pool_2x2(s3))
+            b = run(self.bottleneck, max_pool_2x2(s4))
+            d4 = run(self.dec4, self.up4(b), s4)
+            d3 = run(self.dec3, self.up3(d4), s3)
+            d2 = run(self.dec2, self.up2(d3), s2)
+            d1 = run(self.dec1, self.up1(d2), s1)
             disp_pre = self.disparity_head(d1)
             logvar_pre = self.logvar_head(d1) if return_uncertainty else None
         # Head nonlinearities in float32 (disparity >= 0, logvar bounded).
@@ -264,6 +485,21 @@ class StereoUNet(nn.Module):
             return disparity
         logvar = logvar_pre.float().clamp(-6.0, 3.0).permute(0, 2, 3, 1)
         return disparity, logvar
+
+
+    def _run(self, block: ConvBlock, *inputs: torch.Tensor) -> torch.Tensor:
+        """``block(*inputs)``; under ``remat`` in training, recomputed in the
+        backward with the running statistics kept (``_KeepRunningStats``)."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            if torch.compiler.is_compiling():
+                # Traced, the recompute is part of the backward graph, and
+                # AOTAutograd applies the block's running-statistic updates
+                # once, from the forward; a context_fn there must be a pair
+                # of dispatch modes.
+                return checkpoint(block, *inputs, use_reentrant=False)
+            return checkpoint(block, *inputs, use_reentrant=False,
+                              context_fn=functools.partial(_remat_contexts, block))
+        return block(*inputs)
 
 
 def count_params(model: nn.Module) -> int:

@@ -75,17 +75,36 @@ def _resample_tensor(in_size: int, out_size: int, device: torch.device) -> torch
     return torch.from_numpy(_resample_matrix(in_size, out_size)).to(device, torch.float64)
 
 
-def resize_bilinear(image: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Device resize of ``(..., H, W, C)`` tensors (NHWC or HWC) -> float32."""
-    h_out, w_out = out_hw
-    h_in, w_in = image.shape[-3], image.shape[-2]
+def resample_matrices(
+    in_hw: tuple[int, int], out_hw: tuple[int, int], device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """The float64 (rows, columns) matrices of a resize from ``in_hw`` to
+    ``out_hw`` on ``device``, or None where the sizes are equal. A caller
+    that compiles its resize builds them here, outside the traced code, and
+    passes them to ``resize_bilinear_with``."""
+    if tuple(in_hw) == tuple(out_hw):
+        return None
+    return (_resample_tensor(in_hw[0], out_hw[0], device),
+            _resample_tensor(in_hw[1], out_hw[1], device))
+
+
+def resize_bilinear_with(
+    image: torch.Tensor, matrices: tuple[torch.Tensor, torch.Tensor] | None
+) -> torch.Tensor:
+    """Device resize of ``(..., H, W, C)`` tensors by ``resample_matrices``'
+    result: two float64 products -> float32."""
     x = image.to(torch.float32)
-    if (h_in, w_in) == (h_out, w_out):
+    if matrices is None:
         return x
-    a_h = _resample_tensor(h_in, h_out, x.device)
-    a_w = _resample_tensor(w_in, w_out, x.device)
+    a_h, a_w = matrices
     x = torch.einsum("oh,...hwc->...owc", a_h, x.to(torch.float64))
     return torch.einsum("pw,...owc->...opc", a_w, x).to(torch.float32)
+
+
+def resize_bilinear(image: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Device resize of ``(..., H, W, C)`` tensors (NHWC or HWC) -> float32."""
+    in_hw = (image.shape[-3], image.shape[-2])
+    return resize_bilinear_with(image, resample_matrices(in_hw, out_hw, image.device))
 
 
 def resize_disparity(

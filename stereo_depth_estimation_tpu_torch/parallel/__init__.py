@@ -2,6 +2,7 @@ from .train_step import (
     CompileOptions,
     TrainState,
     compile_model,
+    compile_options_from,
     create_train_state,
     make_adamw,
     make_device_data_train_step,
@@ -15,6 +16,7 @@ __all__ = [
     "CompileOptions",
     "TrainState",
     "compile_model",
+    "compile_options_from",
     "create_train_state",
     "make_adamw",
     "make_device_data_train_step",

@@ -21,6 +21,11 @@ its first compile, so Inductor's caches hit and no kernel is built again.
   (compiled and saved) or ``"compiled-unsaved"`` (nothing to save, or the
   write failed).
 - A failure of ``torch.compile`` itself is not caught here: it raises.
+- A save holds what the process compiled or loaded since its previous save
+  (``torch.compiler.save_cache_artifacts``): in one process that runs
+  several caches, a graph saved in one blob and found again in Inductor's
+  in-process caches by a later one may be missing from the later blob. Each
+  CLI run in its own process saves everything it compiled.
 
 SECURITY: the artifacts hold pickles and generated code that the loading
 process runs, so loading a blob another user could have written is
@@ -86,6 +91,19 @@ def cache_digest(setting: dict[str, Any], device: torch.device) -> str:
         *(f"{k}={setting[k]!r}" for k in sorted(setting)),
     ])
     return hashlib.blake2s(key.encode()).hexdigest()
+
+
+def compile_cache_for(
+    aot_cache: str, auto_base: str | Path, setting: dict[str, Any], device: torch.device,
+    verbose: bool = True,
+) -> CompileCache | None:
+    """A CLI's compile cache for ``--aot-cache`` (``resolve_aot_dir``), keyed
+    by ``setting`` on ``device``, or None with ``off``; with ``verbose`` its
+    notes go to stderr."""
+    aot_dir = resolve_aot_dir(aot_cache, auto_base)
+    if aot_dir is None:
+        return None
+    return CompileCache(aot_dir, cache_digest(setting, device), verbose=verbose)
 
 
 def _inductor_counts() -> dict[str, int]:

@@ -91,10 +91,19 @@ class CompileOptions:
     backend: str = "xla"
 
 
-def compile_model(module: nn.Module, options: CompileOptions) -> nn.Module:
+def compile_options_from(args) -> CompileOptions | None:
+    """A CLI's ``--compile``, ``--compile-mode`` and ``--compile-backend``
+    (the trainer's config or a serving CLI's arguments): the options, or
+    None for eager."""
+    if not args.compile:
+        return None
+    return CompileOptions(mode=args.compile_mode, backend=args.compile_backend)
+
+
+def compile_model(module: Callable, options: CompileOptions) -> Callable:
     """``torch.compile(module, fullgraph=True)`` with ``options``: one graph,
     or a failure. A failure to compile raises at the first call; nothing
-    falls back to eager."""
+    falls back to eager. ``module`` is a module or a function of tensors."""
     backend = "inductor" if options.backend == "xla" else options.backend
     return torch.compile(module, mode=options.mode, backend=backend, fullgraph=True)
 
@@ -434,15 +443,22 @@ def make_eval_step(mesh: Mesh | None = None) -> Callable[[TrainState, Batch], Lo
 
 
 def make_predict_fn(
-    model: StereoUNet, mesh: Mesh | None = None,
+    model: StereoUNet, mesh: Mesh | None = None, compiled: nn.Module | None = None,
 ) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
     """Inference: input NHWC (uint8 or float) -> (disparity, logvar), each
     (N, H, W) float32, with running BN stats. On a spatial ``mesh`` every
     rank of a data row calls it with the same whole images: each runs the
     model on its stripe, and the stripes are gathered with one all-reduce
     over the spatial group (each rank writes its rows of a zero buffer), so
-    every rank returns the whole images."""
+    every rank returns the whole images.
+
+    With ``compiled`` (``compile_model(model)``, the serving CLIs'
+    ``--compile``) the forward runs through it. The model is put in eval
+    mode here, outside the traced code, before every call, so the compiled
+    graph always meets an eval-mode model and its guard on ``training``
+    holds; the mode the model had is restored after the call."""
     spatial = mesh is not None and mesh.spatial > 1
+    forward = model if compiled is None else compiled
 
     @torch.inference_mode()
     def predict(inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -450,8 +466,8 @@ def make_predict_fn(
         was_training = model.training
         model.eval()
         try:
-            disp, logvar = model(_prepare_input(inputs[:, start:stop]),
-                                 return_uncertainty=True)
+            disp, logvar = forward(_prepare_input(inputs[:, start:stop]),
+                                   return_uncertainty=True)
         finally:
             model.train(was_training)
         if not spatial:

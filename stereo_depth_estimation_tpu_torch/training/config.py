@@ -72,6 +72,27 @@ class TrainConfig:
         return asdict(self)
 
 
+def add_compile_arguments(parser: argparse.ArgumentParser, graphs: str) -> None:
+    """``--compile``, ``--compile-mode`` and ``--compile-backend``, with the
+    trainer's defaults (eager unless asked), for the trainer and the serving
+    CLIs; ``graphs`` says what one CLI compiles."""
+    defaults = TrainConfig()
+    parser.add_argument(
+        "--compile", action=argparse.BooleanOptionalAction, default=defaults.compile,
+        help=f"Run the model through torch.compile ({graphs}; the CUDA kernels "
+             "stay in it as custom ops). Off: eager.")
+    parser.add_argument(
+        "--compile-mode", type=str, default=defaults.compile_mode,
+        choices=("default", "reduce-overhead", "max-autotune"),
+        help="torch.compile mode with --compile.")
+    parser.add_argument(
+        "--compile-backend", type=str, default=defaults.compile_backend,
+        help="torch.compile backend with --compile: 'xla' (the JAX package's "
+             "default) is Inductor, the compiler in XLA's place; any other name "
+             "(aot_eager, eager, ...) goes to torch.compile, which raises on an "
+             "unknown one.")
+
+
 def parse_args(argv: list[str] | None = None) -> TrainConfig:
     defaults = TrainConfig()
     parser = argparse.ArgumentParser(
@@ -114,18 +135,8 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
         help="Optional npz cache root (read-through).")
     add("--require-cache", action="store_true",
         help="Fail if any requested sample is missing from --cache-root.")
-    add("--compile", action=argparse.BooleanOptionalAction, default=defaults.compile,
-        help="Run the model through torch.compile (one graph for the training "
-             "forward and backward, one for eval; the CUDA kernels stay in it as "
-             "custom ops). Off: eager.")
-    add("--compile-mode", type=str, default=defaults.compile_mode,
-        choices=("default", "reduce-overhead", "max-autotune"),
-        help="torch.compile mode with --compile.")
-    add("--compile-backend", type=str, default=defaults.compile_backend,
-        help="torch.compile backend with --compile: 'xla' (the JAX package's "
-             "default) is Inductor, the compiler in XLA's place; any other name "
-             "(aot_eager, eager, ...) goes to torch.compile, which raises on an "
-             "unknown one.")
+    add_compile_arguments(
+        parser, "one graph for the training forward and backward, one for eval")
     add("--augment", action=argparse.BooleanOptionalAction, default=defaults.augment,
         help="Enable asymmetric RGB augmentations independently on left/right.")
     add("--brightness-jitter", type=float, default=defaults.brightness_jitter,

@@ -49,13 +49,13 @@ from ..eval.preview import save_preview_montage
 from ..models.unet import StereoUNet, count_params
 from ..ops.augment import AugmentConfig
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
-from ..parallel.aot_cache import CompileCache, cache_digest, resolve_aot_dir
+from ..parallel.aot_cache import CompileCache, compile_cache_for
 from ..parallel.distributed import MultihostBatcher, is_main_process, run_ranks
 from ..parallel.mesh import Mesh, check_factors, pad_batch_to, replicate_to_mesh
 from ..parallel.train_step import (
-    CompileOptions,
     DeviceDataTrainStep,
     TrainState,
+    compile_options_from,
     create_train_state,
     make_adamw,
     make_eval_step,
@@ -96,20 +96,12 @@ def check_supported(cfg: TrainConfig, device: torch.device) -> None:
         check_factors(local * processes, cfg.spatial_devices)
 
 
-def compile_options_from(cfg: TrainConfig) -> CompileOptions | None:
-    """``--compile``'s options, or None for the eager step."""
-    if not cfg.compile:
-        return None
-    return CompileOptions(mode=cfg.compile_mode, backend=cfg.compile_backend)
-
-
 def compile_cache_from(cfg: TrainConfig, mesh: Mesh, verbose: bool) -> CompileCache | None:
     """The compile cache of a ``--compile`` run (``parallel/aot_cache.py``),
     or None: off with ``--aot-cache off``, and under ``--multihost`` unless
     ``--aot-cache-multihost``. Local ``--mesh-devices`` ranks use it (the
     JAX package runs them in one process); each rank keys its own blob."""
-    aot_dir = resolve_aot_dir(cfg.aot_cache, cfg.output_dir)
-    if not cfg.compile or aot_dir is None or (cfg.multihost and not cfg.aot_cache_multihost):
+    if not cfg.compile or (cfg.multihost and not cfg.aot_cache_multihost):
         return None
     setting = {
         "compile_mode": cfg.compile_mode, "compile_backend": cfg.compile_backend,
@@ -117,7 +109,7 @@ def compile_cache_from(cfg: TrainConfig, mesh: Mesh, verbose: bool) -> CompileCa
         "batch_size": cfg.batch_size, "height": cfg.height, "width": cfg.width,
         "ranks": mesh.world_size, "rank": mesh.rank, "spatial": mesh.spatial,
     }
-    return CompileCache(aot_dir, cache_digest(setting, mesh.device), verbose=verbose)
+    return compile_cache_for(cfg.aot_cache, cfg.output_dir, setting, mesh.device, verbose)
 
 
 def augment_config_from(cfg: TrainConfig) -> AugmentConfig | None:

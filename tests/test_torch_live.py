@@ -269,9 +269,19 @@ def test_live_cli_refuses_a_capture_size_off_the_calibration(ckpt, tmp_path) -> 
 
 def test_live_cli_flags_device_and_defaults(ckpt, tmp_path) -> None:
     argv = _live_argv(ckpt, tmp_path, tmp_path / "out", "--no-rectify")
-    assert vars(depth_live_dl.parse_args(argv)) == vars(jax_live.parse_args(argv))
-    with pytest.raises(NotImplementedError, match="not ported yet: --aot-cache"):
-        depth_live_dl.main(argv + ["--device", "cpu", "--aot-cache", "some/dir"])
+    ours = vars(depth_live_dl.parse_args(argv))
+    # The JAX viewer always jits; the port compiles on --compile, with the
+    # trainer's flags and defaults.
+    assert [ours.pop(k) for k in ("compile", "compile_mode", "compile_backend")] == [
+        False, "default", "xla"]
+    assert ours == vars(jax_live.parse_args(argv))
+    # A compile-cache directory is taken; without --compile nothing is
+    # compiled, so nothing is written there.
+    _write_frames(tmp_path / "frames", 2)
+    depth_live_dl.main(_live_argv(ckpt, tmp_path / "frames", tmp_path / "out", "--no-rectify",
+                                  "--device", "cpu", "--aot-cache", str(tmp_path / "aot")))
+    assert len(list((tmp_path / "out").glob("readout_*.json"))) == 2
+    assert not (tmp_path / "aot").exists()
     if not torch.cuda.is_available():
         for device in ("auto", "cuda"):
             with pytest.raises(RuntimeError, match="CUDA is not available"):

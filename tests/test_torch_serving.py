@@ -282,6 +282,10 @@ def test_flags_and_defaults_are_the_jax_clis(name, port, jax_mod) -> None:
     theirs = {a.dest: a.default for a in jax_mod()._actions}
     if name == "predict":  # the JAX CLI runs where JAX puts it; the port asks
         assert ours.pop("device") == "auto"
+    if name in ("evaluate", "predict"):  # the JAX CLIs always jit; the port
+        # compiles on --compile, with the trainer's flags and defaults
+        assert [ours.pop(k) for k in ("compile", "compile_mode", "compile_backend")] == [
+            False, "default", "xla"]
     assert ours == theirs
 
 
@@ -293,10 +297,11 @@ def _cli_run(root: Path, out: Path, cli: str, *argv: str) -> dict:
 
 
 @pytest.mark.parametrize("cli,argv", [
-    # Height sharding runs since its slice: on two ranks a 1 x 2 mesh scores
-    # what the JAX CLI's (data, spatial) mesh and one rank score; one rank
-    # does not factor into two stripes and raises ValueError. The serving
-    # compile cache is still refused.
+    # Every flag has its mechanism now. Height sharding: on two ranks a 1 x 2
+    # mesh scores what the JAX CLI's (data, spatial) mesh and one rank score;
+    # one rank does not factor into two stripes and raises ValueError. The
+    # compile cache's directory is taken, and without --compile nothing is
+    # compiled, so nothing is written there.
     ("evaluate", ["--mesh-devices", "2", "--spatial-devices", "2"]),
     ("evaluate", ["--spatial-devices", "2"]),
     ("evaluate", ["--aot-cache", "some/dir"]),
@@ -321,9 +326,13 @@ def test_flags_without_a_mechanism_raise(root, tmp_path, cli, argv) -> None:
             for key in ("mae", "rmse", "nll", "sigma", "loss"):
                 np.testing.assert_allclose(got[key], want[key], rtol=METRIC_RTOL, err_msg=key)
         return
-    with pytest.raises(NotImplementedError, match="not ported yet: .*ROADMAP Queue 1 item"):
-        _cli_run(root, tmp_path, cli, "--device", "cpu", *argv)
-    assert not list(tmp_path.glob("*.npz"))
+    cache_dir = tmp_path / argv[1]
+    got = _cli_run(root, tmp_path / "out", cli, "--device", "cpu", "--aot-cache", str(cache_dir))
+    want = _cli_run(root, tmp_path / "eager", cli, "--device", "cpu", "--aot-cache", "off")
+    assert got.keys() == want.keys() and "compile_cache" not in got
+    assert not cache_dir.exists()
+    if cli == "predict":
+        assert len(list((tmp_path / "out").glob("*.npz"))) == got["pairs"] == 5
 
 
 @pytest.mark.parametrize("cli", ["evaluate", "predict"])
