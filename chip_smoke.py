@@ -7,13 +7,20 @@ Run from the repository root, with no arguments:
 
 It builds the CUDA kernels from ``stereo_depth_estimation_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's two paths:
+plain PyTorch version on the card (BN1-BN4, the BatchNorm + ReLU kernels of
+``csrc/batchnorm.cu``, at the main path's 18 BatchNorm shapes in bf16, at
+batch 16 in float32 and with bf16 statistics, at C = 4 and 36 and ragged
+row counts, each launched twice and bitwise repeatable), holds the tensor
+disparity codec against the numpy one, and drives the port's paths:
 
 - the augmented StereoUNet train step at full width (base 32, 240x320, batch
   128, bf16, over a device-resident uint8 payload), then predict: the
   augmentation's gray-mean kernel and kernel K1 (the colour chain) once per
   step, K2/K3 (the model's four 2x2 max pools, forward and backward) four
-  times each per step, K2 four times per predict;
+  times each per step, K2 four times per predict; then one call of the
+  K-step loop (``make_device_data_train_loop``, 10 steps) under
+  ``torch.cuda.set_sync_debug_mode("warn")``, its host synchronisations
+  counted;
 - the trainer CLI on the packed cache: a synthetic FoundationStereo-layout
   dataset, two epochs device-resident (pinned), then a resumed third;
 - the serving path on that dataset and the trainer's ``last.pt`` (base 32,
@@ -57,7 +64,9 @@ plain PyTorch version on the card, and drives the port's two paths:
   step against AdamW's), a planted fault (a hybrid backward that swaps its
   two input gradients) that the check must catch, ``remat`` also against
   the default model in float32 with the BatchNorm running statistics after
-  the step, then timed steps with their launches and peak memory;
+  the step, then timed steps with their launches and peak memory
+  (``fused_block`` and bf16 statistics run their 18 BatchNorms a step on
+  BN1-BN4, as do the two-rank and spatial phases' models);
 - the serving forwards compiled (the serving CLIs' ``--compile``):
   evaluate over a ragged tail and predict, each against its eager run, the
   steady compiled ``predict_fn`` and eval step beside eager, the live engine
@@ -68,7 +77,8 @@ plain PyTorch version on the card, and drives the port's two paths:
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
-and a PyTorch library call where one computes the same function, times the
+and a PyTorch library call where one computes the same function (BN1-BN4
+also beside cuDNN's BatchNorm + ReLU, forward and backward), times the
 augmentation layer part by part (``augment_timing.py``), and prints one JSON
 line with the kernel list and, last, the result line. Any failed
 check raises, so the exit code is non-zero and no result line is printed.
@@ -88,6 +98,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -107,7 +119,7 @@ from stereo_depth_estimation_tpu_torch.eval import evaluate, predict
 from stereo_depth_estimation_tpu_torch.eval.preview import normalize_map
 from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatcher, LiveDepthEngine
 from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
-from stereo_depth_estimation_tpu_torch.ops import pool
+from stereo_depth_estimation_tpu_torch.ops import batchnorm, pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     _pack_factors,
@@ -116,6 +128,7 @@ from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     pointwise_chain_cuda,
     pointwise_chain_plain,
 )
+from stereo_depth_estimation_tpu_torch.ops import codec
 from stereo_depth_estimation_tpu_torch.ops.codec import disparity_encode_np
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import augment_stereo_batch_fused
 from stereo_depth_estimation_tpu_torch.ops.loss import (
@@ -131,6 +144,7 @@ from stereo_depth_estimation_tpu_torch.parallel import (
     compile_model,
     create_train_state,
     make_adamw,
+    make_device_data_train_loop,
     make_device_data_train_step,
     make_eval_step,
     make_predict_fn,
@@ -152,6 +166,8 @@ from stereo_depth_estimation_tpu_torch.parallel.mesh import (
 from stereo_depth_estimation_tpu_torch.training import checkpoint, trainer
 
 BATCH, HW, PAYLOAD, STEPS, WARMUP = 128, (240, 320), 512, 5, 2
+# The K-step loop's steps a call (make_device_data_train_loop).
+LOOP_STEPS = 10
 # The pools' inputs on the main path (NHWC): the four encoder levels at
 # base 32 (channels 32, 64, 128, 256).
 POOL_SHAPES = [(BATCH, HW[0] >> k, HW[1] >> k, 32 << k) for k in range(4)]
@@ -283,6 +299,40 @@ BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
 # and card (PERF.md section 6, H100 80GB HBM3 at 700 W; the whole call as
 # first read, before timed launches were queued behind a spin).
 BEFORE_AUGMENT_REDESIGN = "K1 442.0 us, whole augment_stereo_batch_fused 2212.7 us"
+
+# BatchNorm kernels BN1-BN4 (csrc/batchnorm.cu): the main path's 18
+# BatchNorm inputs as (N, H, W, C) by level, with the number of BatchNorms
+# at each (two in each encoder and decoder block, two in the bottleneck).
+# The kernels take them as (M = N*H*W, C) rows of channels.
+BN_LEVELS = [(BATCH, HW[0] >> k, HW[1] >> k, 32 << k, 2 if k == 4 else 4) for k in range(5)]
+BN_NAMES = ("BN1", "BN2", "BN3", "BN4")
+BN_EPS = 1e-5
+# The checks also run these shapes at batch BN_F32_BATCH (float32, as the
+# multi-rank and spatial phases run them; and bf16 statistics), and ragged
+# (M, C): C = 4 and 36 (no 16-byte groups in bf16; 36 float32 channels are
+# nine), and M off every multiple of a block's rows.
+BN_F32_BATCH = 16
+BN_RAGGED = [(1_000_003, 4), (77_777, 36), (4_099, 64), (33, 512)]
+# Kernel vs plain: the sums (BN1, BN3) within BN_SUM_RTOL of the sum of their
+# terms' magnitudes, per channel: they add in another order (registers, a
+# block's rows, then the blocks' partials). With bf16 statistics each mean
+# within one bf16 ulp: the means are rounded to bf16 after the sum, and a
+# sum within float noise of a rounding boundary goes the other way. BN2 and
+# BN4 within one ulp of their output dtype (the same correctly rounded
+# float32 operations as the plain version; 0 is expected).
+BN_SUM_RTOL = 1e-5
+# (name, function, what the kernel stands for in the JAX package: XLA fuses
+# that work there, so the line is the JAX source's, not a TPU kernel's).
+BN_KERNELS = (
+    ("BN1", "bn_stats", "stereo_depth_estimation_tpu/models/unet.py:67-70 (flax BatchNorm "
+     "statistics) and :133-135 (_fcbr_fwd_math), XLA fusions"),
+    ("BN2", "bn_relu_fwd", "stereo_depth_estimation_tpu/models/unet.py:86-88 (flax "
+     "BatchNorm normalisation + ReLU) and :136-138, XLA fusions"),
+    ("BN3", "bn_relu_bwd_sums", "stereo_depth_estimation_tpu/models/unet.py:183-194 "
+     "(_fcbr_bwd sums), XLA fusions"),
+    ("BN4", "bn_relu_bwd_dx", "stereo_depth_estimation_tpu/models/unet.py:196-200 "
+     "(_fcbr_bwd dz), XLA fusions"),
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -628,6 +678,235 @@ def phase_pool_timing(shapes=POOL_SHAPES, dtype=torch.bfloat16,
     return sums
 
 
+def bn_relative_gap(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
+    """Largest |got - want| relative to ``scale`` (floored at the smallest
+    normal float32)."""
+    return float(((got - want).abs() / scale.clamp(min=2.0**-126)).max())
+
+
+def ulp_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest distance of ``got`` from ``want`` in ulps of ``want``'s dtype
+    at ``want``'s magnitude."""
+    g, w = got.float(), want.float()
+    if want.dtype == torch.bfloat16:
+        spacing = bf16_ulp(w)
+    else:
+        a = w.abs()
+        spacing = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    return float(((g - w).abs() / spacing).max())
+
+
+def bn_inputs(gen, m: int, c: int, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """x, dy (m, c) in ``dtype`` (x normal with a per-channel offset, so
+    that about half the pre-activations are below 0), gamma and beta."""
+    shift = torch.randn((c,), device="cuda", generator=gen)
+    x = torch.randn((m, c), device="cuda", generator=gen).mul_(1.5).add_(shift).to(dtype)
+    dy = torch.randn((m, c), device="cuda", generator=gen).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn((c,), device="cuda", generator=gen)
+    beta = 0.2 * torch.randn((c,), device="cuda", generator=gen)
+    return {"x": x, "dy": dy, "gamma": gamma, "beta": beta}
+
+
+def bn_coefficients(stats: torch.Tensor, gamma: torch.Tensor, c: int) -> dict:
+    """mean, var, n and scale from BN1's layout, as ``models/unet.py`` forms them."""
+    mean, var, n = unet._moments(stats, c)
+    return {"mean": mean, "var": var, "n": n, "scale": unet._scale(var, gamma, BN_EPS)}
+
+
+def bn_case(gen, m: int, c: int, dtype: torch.dtype, relu: bool, bf16_stats: bool) -> dict:
+    """BN1-BN4 against their plain versions on one case, and each kernel
+    launched twice, bitwise equal. Returns each kernel's gap, its unit
+    ("rel": BN1, BN3 relative to the sum of the terms' magnitudes; "ulps":
+    BN1's bf16-statistics means in bf16 ulps, BN2 and BN4 in ulps of the
+    output dtype) and its largest absolute error."""
+    t = bn_inputs(gen, m, c, dtype)
+    x, dy, gamma, beta = t["x"], t["dy"], t["gamma"], t["beta"]
+    what = f"({m}, {c}) {str(dtype).split('.')[-1]} relu {relu} bf16 statistics {bf16_stats}"
+    out = {}
+
+    got, want = batchnorm.bn_stats_cuda(x, bf16_stats), batchnorm.bn_stats_plain(x, bf16_stats)
+    check(torch.equal(got, batchnorm.bn_stats_cuda(x, bf16_stats)), f"BN1 repeat differs {what}")
+    check(float(got[2 * c]) == m, f"BN1 count {float(got[2 * c])}, expected {m} {what}")
+    if bf16_stats:
+        gap = ulp_gap((got[:2 * c] / m).bfloat16(), (want[:2 * c] / m).bfloat16())
+    else:
+        xf = x.float()
+        gap = bn_relative_gap(got[:2 * c], want[:2 * c],
+                              torch.cat([xf.abs().sum(0), (xf * xf).sum(0)]))
+        del xf
+    out["BN1"] = (gap, "ulps" if bf16_stats else "rel", float((got - want).abs().max()))
+    k = bn_coefficients(want, gamma, c)  # both versions take the same inputs from here
+    mean, scale, n = k["mean"], k["scale"], k["n"]
+
+    got = batchnorm.bn_relu_fwd_cuda(x, mean, scale, beta, relu)
+    want = batchnorm.bn_relu_fwd_plain(x, mean, scale, beta, relu)
+    check(torch.equal(got, batchnorm.bn_relu_fwd_cuda(x, mean, scale, beta, relu)),
+          f"BN2 repeat differs {what}")
+    out["BN2"] = (ulp_gap(got, want), "ulps", float((got.float() - want.float()).abs().max()))
+    del got, want
+
+    got = batchnorm.bn_relu_bwd_sums_cuda(dy, x, mean, scale, beta, relu)
+    want = batchnorm.bn_relu_bwd_sums_plain(dy, x, mean, scale, beta, relu)
+    check(torch.equal(got, batchnorm.bn_relu_bwd_sums_cuda(dy, x, mean, scale, beta, relu)),
+          f"BN3 repeat differs {what}")
+    dyp = batchnorm._masked(dy, x, mean, scale, beta, relu)
+    terms = torch.cat([dyp.abs().sum(0), (dyp * (x.float() - mean)).abs().sum(0)])
+    del dyp
+    out["BN3"] = (bn_relative_gap(got, want, terms), "rel", float((got - want).abs().max()))
+    t1, t2 = unet._dz_coefficients(want, torch.rsqrt(k["var"] + BN_EPS), scale, n)
+
+    got = batchnorm.bn_relu_bwd_dx_cuda(dy, x, mean, scale, beta, t1, t2, relu)
+    want = batchnorm.bn_relu_bwd_dx_plain(dy, x, mean, scale, beta, t1, t2, relu)
+    check(torch.equal(got, batchnorm.bn_relu_bwd_dx_cuda(dy, x, mean, scale, beta, t1, t2,
+                                                         relu)), f"BN4 repeat differs {what}")
+    out["BN4"] = (ulp_gap(got, want), "ulps", float((got.float() - want.float()).abs().max()))
+    torch.cuda.synchronize()
+    for name, (gap, unit, _) in out.items():
+        tol = 1.0 if unit == "ulps" else BN_SUM_RTOL
+        check(gap <= tol, f"{name} off its plain version by {gap:.3g} (tol {tol:g}) {what}")
+    return out
+
+
+def bn_check_cases() -> list[tuple[int, int, torch.dtype, bool, bool]]:
+    """(m, c, dtype, relu, bf16 statistics) of the BN-check phase: the main
+    path's five shapes in bf16 (ReLU on), f32 at batch 16 (ReLU off), bf16
+    statistics at batch 16 (ReLU on), and the ragged cases in both dtypes."""
+    cases = [(n * h * w, c, torch.bfloat16, True, False) for n, h, w, c, _ in BN_LEVELS]
+    cases += [(BN_F32_BATCH * h * w, c, torch.float32, False, False)
+              for _, h, w, c, _ in BN_LEVELS]
+    cases += [(BN_F32_BATCH * h * w, c, torch.bfloat16, True, True)
+              for _, h, w, c, _ in BN_LEVELS]
+    for i, (m, c) in enumerate(BN_RAGGED):
+        cases += [(m, c, torch.bfloat16, i % 2 == 0, i % 2 == 1),
+                  (m, c, torch.float32, i % 2 == 1, False)]
+    return cases
+
+
+def phase_bn_checks() -> dict[str, float]:
+    """BN1-BN4 against their plain versions (``bn_case``) on every case of
+    ``bn_check_cases``. Returns each kernel's largest absolute error at the
+    main path's bf16 shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    before = counts()
+    worst: dict[str, float] = {}
+    main_err = dict.fromkeys(BN_NAMES, 0.0)
+    main = {(n * h * w, c) for n, h, w, c, _ in BN_LEVELS}
+    for m, c, dtype, relu, bf16_stats in bn_check_cases():
+        out = bn_case(gen, m, c, dtype, relu, bf16_stats)
+        for name, (gap, unit, err) in out.items():
+            key = f"{name} {unit}"
+            worst[key] = max(worst.get(key, 0.0), gap)
+            if (m, c) in main and dtype == torch.bfloat16:
+                main_err[name] = max(main_err[name], err)
+        print(f"bn check: ({m}, {c}) {str(dtype).split('.')[-1]} relu {relu} bf16 statistics "
+              f"{bf16_stats}: " + ", ".join(f"{k} {g:.3g} {u}" for k, (g, u, _) in out.items())
+              + " ok; two launches of each bitwise equal")
+        torch.cuda.empty_cache()
+    restore_counts(before)  # check launches are not a path's
+    print(f"bn check: every case within its tolerance (sums {BN_SUM_RTOL:g} of the terms' "
+          f"magnitudes, bf16-statistics means and elementwise outputs one ulp); worst "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return main_err
+
+
+def bn_bytes(name: str, m: int, c: int, itemsize: int) -> int:
+    """Bytes a kernel must move at (m, c): its (m, c) inputs read once and
+    outputs written once (the (C,) vectors and sums are negligible but
+    counted)."""
+    big = {"BN1": 1, "BN2": 2, "BN3": 2, "BN4": 3}[name] * m * c * itemsize
+    small = {"BN1": 2 * c + 1, "BN2": 3 * c, "BN3": 5 * c, "BN4": 5 * c}[name] * 4
+    return big + small
+
+
+def phase_bn_timing() -> dict[str, dict]:
+    """BN1-BN4 at the main path's 18 BatchNorm inputs (bf16, ReLU on),
+    summed over the layers: kernel, plain version, the PyTorch primitive that
+    computes the same function (batch_norm_stats, batch_norm_elemt,
+    batch_norm_backward_reduce, batch_norm_backward_elemt, which the port
+    never calls) and the byte bound; and cuDNN's BatchNorm + ReLU, forward
+    (torch.batch_norm in training + relu_) and autograd backward, beside
+    them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    before = counts()
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            for name in BN_NAMES}
+    cudnn = {"forward": 0.0, "backward": 0.0}
+    for n_img, h, w, c, layers in BN_LEVELS:
+        m = n_img * h * w
+        t = bn_inputs(gen, m, c, torch.bfloat16)
+        x, dy, gamma, beta = t["x"], t["dy"], t["gamma"], t["beta"]
+        k = bn_coefficients(batchnorm.bn_stats_plain(x, False), gamma, c)
+        mean, scale, n = k["mean"], k["scale"], k["n"]
+        t1, t2 = unet._dz_coefficients(
+            batchnorm.bn_relu_bwd_sums_plain(dy, x, mean, scale, beta, True),
+            torch.rsqrt(k["var"] + BN_EPS), scale, n)
+        # The (N, C, H, W) channels_last views the library calls take.
+        x4, dy4 = (v.view(n_img, h, w, c).permute(0, 3, 1, 2) for v in (x, dy))
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        lib_mean, lib_invstd = torch.batch_norm_stats(x4, BN_EPS)
+        reduced = torch.batch_norm_backward_reduce(dy4, x4, lib_mean, lib_invstd, gamma,
+                                                   True, True, True)
+        count = torch.full((1,), m, dtype=torch.int32, device="cuda")
+        kernels = {
+            "BN1": (lambda: batchnorm.bn_stats_cuda(x, False),
+                    lambda: batchnorm.bn_stats_plain(x, False),
+                    lambda: torch.batch_norm_stats(x4, BN_EPS)),
+            "BN2": (lambda: batchnorm.bn_relu_fwd_cuda(x, mean, scale, beta, True),
+                    lambda: batchnorm.bn_relu_fwd_plain(x, mean, scale, beta, True),
+                    lambda: torch.batch_norm_elemt(x4, gamma, beta, lib_mean, lib_invstd,
+                                                   BN_EPS)),
+            "BN3": (lambda: batchnorm.bn_relu_bwd_sums_cuda(dy, x, mean, scale, beta, True),
+                    lambda: batchnorm.bn_relu_bwd_sums_plain(dy, x, mean, scale, beta, True),
+                    lambda: torch.batch_norm_backward_reduce(dy4, x4, lib_mean, lib_invstd,
+                                                             gamma, True, True, True)),
+            "BN4": (lambda: batchnorm.bn_relu_bwd_dx_cuda(dy, x, mean, scale, beta, t1, t2,
+                                                          True),
+                    lambda: batchnorm.bn_relu_bwd_dx_plain(dy, x, mean, scale, beta, t1, t2,
+                                                           True),
+                    lambda: torch.batch_norm_backward_elemt(dy4, x4, lib_mean, lib_invstd,
+                                                            gamma, reduced[0], reduced[1],
+                                                            count)),
+        }
+        line = []
+        for name, (kernel, plain, library) in kernels.items():
+            ms, plain_ms, lib_ms = time_ms(kernel, 20), time_ms(plain, 3), time_ms(library, 20)
+            bound = bn_bytes(name, m, c, 2) / HBM_BYTES_PER_S * 1e3
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bound_ms", bound)):
+                sums[name][key] += layers * v
+            line.append(f"{name} {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f}, library "
+                        f"{lib_ms * 1e3:.1f}, bound {bound * 1e3:.1f}, "
+                        f"{100 * bound / ms:.0f}%)")
+        xg = x4.detach().requires_grad_()
+        wg, bg = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        y = torch.relu(torch.batch_norm(xg, wg, bg, rm, rv, True, 0.1, BN_EPS, True))
+        fwd = time_ms(lambda: torch.relu_(torch.batch_norm(x4, gamma, beta, rm, rv, True, 0.1,
+                                                           BN_EPS, True)), 20)
+        bwd = time_ms(lambda: torch.autograd.grad(y, (xg, wg, bg), dy4, retain_graph=True), 20)
+        cudnn["forward"] += layers * fwd
+        cudnn["backward"] += layers * bwd
+        print(f"bn timing: ({m}, {c}) bf16 x{layers}: " + "; ".join(line)
+              + f"; cuDNN BatchNorm + ReLU forward {fwd * 1e3:.1f} us, backward "
+              f"{bwd * 1e3:.1f} us ({card()})")
+        del t, x, dy, x4, dy4, xg, y, kernels
+        torch.cuda.empty_cache()
+    restore_counts(before)  # timing launches are not a path's
+    for name, s in sums.items():
+        print(f"bn timing: {name} over the 18 BatchNorms of a step (batch {BATCH} bf16): kernel "
+              f"{s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms, library {s['library_ms']:.3f} "
+              f"ms, byte bound {s['bound_ms']:.3f} ms, {100 * s['bound_ms'] / s['ms']:.1f}% "
+              f"of bound")
+    total = sum(s["ms"] for s in sums.values())
+    print(f"bn timing: BN1-BN4 {total:.3f} ms a step against cuDNN's BatchNorm + ReLU "
+          f"{cudnn['forward']:.3f} ms forward + {cudnn['backward']:.3f} ms backward = "
+          f"{cudnn['forward'] + cudnn['backward']:.3f} ms ({card()})")
+    for name in BN_NAMES:
+        sums[name]["cudnn_ms"] = cudnn["forward" if name in ("BN1", "BN2") else "backward"]
+    return sums
+
+
 def write_dataset(root: Path, n: int, hw: tuple[int, int], seed: int) -> None:
     """A FoundationStereo-layout dataset of ``n`` samples at ``hw`` in two
     scenes: random RGB pairs, disparity PNGs made with the port's codec
@@ -696,8 +975,9 @@ def phase_trainer(tmp: Path) -> Path:
         steps = epochs * steps_per_epoch
         # Per epoch: the gray means, K1 and 4 K3 per train step; 4 K2 per
         # train step, per validation batch and per preview predict.
-        expected = {"GM": steps, "K1": steps,
-                    "K2": 4 * (steps + epochs * (val_batches + 1)), "K3": 4 * steps}
+        expected = expect_launches(GM=steps, K1=steps,
+                                   K2=4 * (steps + epochs * (val_batches + 1)),
+                                   K3=4 * steps)
         got = {k: run_counts[k] for k in expected}
         check(got == expected, f"trainer launches {got}, expected {expected}")
         for epoch in summary["epochs"]:
@@ -815,7 +1095,7 @@ def max_err(got, want) -> tuple[float, float]:
 
 def serving_counts(k2: int) -> dict[str, int]:
     """The launch counts of a serving run: ``k2`` forward pools, nothing else."""
-    return {"GM": 0, "K1": 0, "K2": k2, "K3": 0}
+    return expect_launches(K2=k2)
 
 
 def check_evaluate(data: Path, ckpt: Path, *argv: str) -> tuple[dict, float, int]:
@@ -1627,8 +1907,11 @@ def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
         end.record()
         torch.cuda.synchronize()
         run_counts = counts()
-        expected = {"GM": KNOB_STEPS, "K1": KNOB_STEPS, "K2": 4 * KNOB_STEPS,
-                    "K3": 4 * KNOB_STEPS}
+        # fused_block and bf16 statistics run their 18 BatchNorms on BN1-BN4.
+        on_kernels = "fused_block" in kwargs or "bn_stats_dtype" in kwargs
+        expected = expect_launches(GM=KNOB_STEPS, K1=KNOB_STEPS, K2=4 * KNOB_STEPS,
+                                   K3=4 * KNOB_STEPS,
+                                   **bn_launches(18 * KNOB_STEPS * on_kernels))
         check(run_counts == expected, f"knob {name}: launches {run_counts}, expected {expected}")
         check(math.isfinite(metrics_from_stats(stats)["loss"]), f"knob {name}: loss {stats}")
         results.setdefault(name, {}).update(
@@ -2001,8 +2284,10 @@ def phase_multi_rank(tmp: Path) -> dict[str, list[int]]:
     launches: dict[str, list[int]] = {}
     for r, result in enumerate(results):
         previews = MR_EPOCHS if r == 0 else 0
+        # Two ranks: the 18 BatchNorms of each training step on BN1-BN4.
         expected = {"GM": steps, "K1": steps, "K3": 4 * steps,
-                    "K2": 4 * (steps + MR_EPOCHS * val_batches + previews)}
+                    "K2": 4 * (steps + MR_EPOCHS * val_batches + previews),
+                    **bn_launches(18 * steps)}
         got = {k: result["counts"][k] for k in expected}
         check(got == expected, f"rank {r} trainer launches {got}, expected {expected}")
         for k, v in got.items():
@@ -2200,7 +2485,8 @@ def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
     del whole
     gaps = held_against_one_rank(two, ones, tmp / "sp_states", "1 x 2 spatial vs one rank",
                                  SP_STATS_RTOL, SP_GRAD_RTOL, SP_BN_RTOL)
-    expected = {"GM": SP_STEPS, "K1": SP_STEPS, "K2": 4 * SP_STEPS, "K3": 4 * SP_STEPS}
+    expected = expect_launches(GM=SP_STEPS, K1=SP_STEPS, K2=4 * SP_STEPS, K3=4 * SP_STEPS,
+                               **bn_launches(18 * SP_STEPS))
     for r, result in enumerate(results):
         check(result["step_counts"] == expected,
               f"rank {r} step launches {result['step_counts']}, expected {expected}")
@@ -2251,7 +2537,8 @@ def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
     for r, result in enumerate(results):
         # Both ranks of data row 0 predict the previews, each its stripe.
         want = {"GM": steps, "K1": steps, "K3": 4 * steps,
-                "K2": 4 * (steps + SP_EPOCHS * 2)}  # a validation batch, the previews
+                "K2": 4 * (steps + SP_EPOCHS * 2),  # a validation batch, the previews
+                **bn_launches(18 * steps)}
         got = {k: result["counts"][k] for k in want}
         check(got == want, f"rank {r} spatial trainer launches {got}, expected {want}")
         for k in want:
@@ -2348,16 +2635,130 @@ def phase_reference_step() -> None:
           "equals the CPU's over 12 steps ok")
 
 
+def counters() -> dict[str, object]:
+    """Every kernel wrapper by name; each counts its launches in ``.launches``."""
+    return {"GM": gray_means_cuda, "K1": pointwise_chain_cuda,
+            "K2": pool.maxpool2x2_fwd_cuda, "K3": pool.maxpool2x2_bwd_cuda,
+            "BN1": batchnorm.bn_stats_cuda, "BN2": batchnorm.bn_relu_fwd_cuda,
+            "BN3": batchnorm.bn_relu_bwd_sums_cuda, "BN4": batchnorm.bn_relu_bwd_dx_cuda}
+
+
+def sync_source(stack: traceback.StackSummary) -> str:
+    """Where a host synchronisation came from: the innermost frame in this
+    repository (relative path, line, function), then the innermost frame
+    of the stack (the library call that synchronised)."""
+    root = Path(__file__).resolve().parent
+    frames = [f for f in stack if Path(f.filename).is_file()
+              and Path(f.filename).name != "warnings.py"]
+    ours = [f for f in frames if Path(f.filename).resolve().is_relative_to(root)
+            and Path(f.filename).name != "chip_smoke.py"]
+    where = ours[-1] if ours else frames[-1]
+    inner = frames[-1]
+    return (f"{Path(where.filename).resolve().relative_to(root) if ours else where.filename}:"
+            f"{where.lineno} {where.name} (in {Path(inner.filename).name}:{inner.lineno} "
+            f"{inner.name})")
+
+
+def phase_train_loop(images: torch.Tensor, targets: torch.Tensor) -> dict:
+    """The K-step loop (``make_device_data_train_loop``) at the main path's
+    setting: one call of LOOP_STEPS steps under
+    ``torch.cuda.set_sync_debug_mode("warn")``, after one step of warm-up
+    (first allocations). Counts the host synchronisations it warns of and
+    names each one's source line; checks the launches and the stacked
+    LossStats."""
+    model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0)
+    loop = make_device_data_train_loop(images, targets, BATCH, AugmentConfig(),
+                                       steps_per_call=LOOP_STEPS)
+    loop.step(state)
+    torch.cuda.synchronize()
+    reset_counts()
+    syncs: list[str] = []
+    notices: list[str] = []
+
+    def record(message, category, filename, lineno, file=None, line=None) -> None:
+        # The mode's own one-time notice (that it is a prototype that does
+        # not see every sync), given by set_sync_debug_mode itself, also
+        # speaks of synchronizing operations: it is printed, not counted.
+        if "synchroniz" in str(message).lower():
+            stack = traceback.extract_stack()[:-1]
+            notice = any(f.name == "set_sync_debug_mode" for f in stack)
+            (notices if notice else syncs).append(sync_source(stack))
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, stats = loop(state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    run_counts = counts()
+    k = LOOP_STEPS
+    check(run_counts == expect_launches(GM=k, K1=k, K2=4 * k, K3=4 * k),
+          f"K-step loop launches {run_counts}")
+    check(all(tuple(s.shape) == (k,) for s in stats), "K-step loop stats are not (K,)")
+    losses = [metrics_from_stats(LossStats(*(f[i] for f in stats)))["loss"] for i in range(k)]
+    check(all(math.isfinite(x) for x in losses), f"K-step loop losses {losses}")
+    sources = sorted(set(syncs))
+    print(f"train loop: make_device_data_train_loop, {k} steps in one call (base 32 bf16, "
+          f"batch {BATCH}, {HW[0]}x{HW[1]}, augmented): host synchronisations under "
+          f"set_sync_debug_mode('warn') {len(syncs)}"
+          + (f" at {'; '.join(sources)}" if sources else "")
+          + f" (the mode's own one-time notice: {len(notices)})"
+          + f"; the call enqueued in {enqueue_s:.3f} s and ran in {call_s:.3f} s "
+          f"({1e3 * call_s / k:.2f} ms/step); stats (K,) on the device, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches {run_counts} ok ({card()})")
+    return {"syncs": len(syncs), "sources": sources, "ms_step": 1e3 * call_s / k,
+            "counts": run_counts}
+
+
+def phase_codec_check() -> None:
+    """The tensor codec on the card against the numpy one: every uint8 RGB
+    triple decoded, and disparities (uniform, and the decoded codes) encoded,
+    bitwise."""
+    codes = np.arange(1 << 24, dtype=np.int64)  # every (R, G, B) of uint8
+    rgb = np.stack([codes >> 16, (codes >> 8) & 255, codes & 255], -1).astype(np.uint8)
+    got = codec.disparity_decode(torch.from_numpy(rgb).cuda()).cpu().numpy()
+    want = codec.disparity_decode_np(rgb)
+    check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+          f"decode differs from numpy at {int((got != want).sum())} codes")
+    disparity = np.concatenate([
+        np.random.default_rng(13).uniform(0.0, 400.0, 1_000_000).astype(np.float32), want])
+    got = codec.disparity_encode(torch.from_numpy(disparity).cuda()).cpu().numpy()
+    check(np.array_equal(got, codec.disparity_encode_np(disparity)),
+          "encode differs from numpy")
+    print(f"codec: disparity_decode on the card bitwise equal to disparity_decode_np on all "
+          f"{len(codes)} RGB triples, disparity_encode to disparity_encode_np on "
+          f"{len(disparity)} disparities ok")
+
+
 def reset_counts() -> None:
-    gray_means_cuda.launches = 0
-    pointwise_chain_cuda.launches = 0
-    pool.maxpool2x2_fwd_cuda.launches = 0
-    pool.maxpool2x2_bwd_cuda.launches = 0
+    restore_counts(dict.fromkeys(counters(), 0))
+
+
+def restore_counts(saved: dict[str, int]) -> None:
+    for name, kernel in counters().items():
+        kernel.launches = saved[name]
 
 
 def counts() -> dict[str, int]:
-    return {"GM": gray_means_cuda.launches, "K1": pointwise_chain_cuda.launches,
-            "K2": pool.maxpool2x2_fwd_cuda.launches, "K3": pool.maxpool2x2_bwd_cuda.launches}
+    return {name: kernel.launches for name, kernel in counters().items()}
+
+
+def expect_launches(**nonzero: int) -> dict[str, int]:
+    """Expected counts: ``nonzero`` and 0 for every other kernel."""
+    return {**dict.fromkeys(counters(), 0), **nonzero}
+
+
+def bn_launches(per_step: int) -> dict[str, int]:
+    """BN1-BN4 each ``per_step`` times."""
+    return dict.fromkeys(BN_NAMES, per_step)
 
 
 def phase_train(state, runner) -> tuple[float, list[LossStats]]:
@@ -2381,6 +2782,7 @@ KERNEL_GROUPS = (  # first match names a device kernel's group
     ("K1 augment", ("augment_kernel",)),
     ("K2 max pool fwd", ("maxpool2x2_fwd",)),
     ("K3 max pool bwd", ("maxpool2x2_bwd",)),
+    ("BN1-BN4", ("bn_stats_partial", "bn_bwd_sums_partial", "bn_sums_final", "bn_relu_")),
     # Inductor's generated kernels (the compiled step): BatchNorm, ReLU and
     # the elementwise passes fused; before "batchnorm", which their names hold.
     ("inductor triton", ("triton_",)),
@@ -2516,7 +2918,7 @@ def phase_compiled(images: torch.Tensor, targets: torch.Tensor, eager_ms: float)
     ms_step, stats = phase_train(state, runner)
     launches = counts()
     recompiles = graph_count() - before
-    expected = {"GM": STEPS, "K1": STEPS, "K2": 4 * STEPS, "K3": 4 * STEPS}
+    expected = expect_launches(GM=STEPS, K1=STEPS, K2=4 * STEPS, K3=4 * STEPS)
     check(launches == expected, f"compiled step launches {launches} in {STEPS} steps, "
           f"expected {expected}: a kernel ran outside the graph or was decomposed")
     check(recompiles == 0, f"the compiled step recompiled {recompiles} times")
@@ -2582,7 +2984,7 @@ def phase_compile_cache(tmp: Path, caches: Path) -> dict:
     torch._dynamo.reset()  # the trainer traces and looks its graphs up itself
     first, first_counts, first_s = counted(trainer.main, compile_cache_argv(tmp, "first"))
     steps = 1  # 144 train samples pinned at batch 128
-    expected = {"GM": steps, "K1": steps, "K2": 4 * (steps + 1 + 1), "K3": 4 * steps}
+    expected = expect_launches(GM=steps, K1=steps, K2=4 * (steps + 1 + 1), K3=4 * steps)
     check(first_counts == expected, f"compiled trainer launches {first_counts}, expected "
           f"{expected}")
     check(all(first["compile_cache"][k]["source"] == "compiled"
@@ -2688,6 +3090,10 @@ def run_all(caches: Path) -> int:
     mark("K1 and gray-mean checks")
     phase_pool_checks()
     mark("K2/K3 checks")
+    bn_errors = phase_bn_checks()
+    mark("BN1-BN4 checks")
+    phase_codec_check()
+    mark("codec check")
     phase_reference_step()
     mark("reference step")
 
@@ -2708,8 +3114,8 @@ def run_all(caches: Path) -> int:
     torch.cuda.reset_peak_memory_stats()
     ms_step, stats = phase_train(state, runner)
     main_counts = counts()
-    expected = {"GM": STEPS, "K1": STEPS, "K2": 4 * STEPS, "K3": 4 * STEPS}
-    check(all(main_counts[k] == n for k, n in expected.items()),
+    expected = expect_launches(GM=STEPS, K1=STEPS, K2=4 * STEPS, K3=4 * STEPS)
+    check(main_counts == expected,
           f"kernel launches {main_counts} in {STEPS} steps, expected {expected}")
     launches = main_counts["K1"]
     losses = [metrics_from_stats(s)["loss"] for s in stats]
@@ -2733,7 +3139,7 @@ def run_all(caches: Path) -> int:
     disp, logvar = predict(batch)
     torch.cuda.synchronize()
     predict_counts = counts()
-    check(predict_counts == {"GM": 0, "K1": 0, "K2": 4, "K3": 0},
+    check(predict_counts == expect_launches(K2=4),
           f"predict launches {predict_counts}, expected K2 4")
     check(tuple(disp.shape) == tuple(logvar.shape) == (BATCH, *HW), "predict shapes")
     check(bool(torch.isfinite(disp).all() and torch.isfinite(logvar).all()), "predict not finite")
@@ -2744,6 +3150,8 @@ def run_all(caches: Path) -> int:
           f"[{float(disp.min()):.4f}, {float(disp.max()):.4f}], K2 launches 4 ok")
     del state, runner, model, predict, batch, disp, logvar
     mark("predict")
+    loop = phase_train_loop(images, targets)
+    mark("K-step loop")
     # The same path compiled, as the trainer's --compile runs it.
     compiled = phase_compiled(images, targets, ms_step)
     mark(f"compiled main path ({compiled['cold_s']:.1f} s the cold compile)")
@@ -2837,6 +3245,8 @@ def run_all(caches: Path) -> int:
     mark("augmentation timing")
     pool_times = phase_pool_timing()
     mark("K2/K3 timing")
+    bn_times = phase_bn_timing()
+    mark("BN1-BN4 timing")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         # The trainer and the serving CLIs as a user runs them, without
         # cuDNN's autotuning (none of them turns it on).
@@ -2891,16 +3301,39 @@ def run_all(caches: Path) -> int:
             "multi_rank_launches": multi_rank[name],
             "spatial_launches": {part: spatial[part][name] for part in spatial},
         })
-    for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3")):
+    # BN1-BN4: their path is a model that computes its BatchNorms (the
+    # fused_block knob's steps; also bf16 statistics, several ranks and
+    # height stripes). Times are sums over the main path's 18 BatchNorm
+    # inputs (bf16, ReLU on; per-level figures on the "bn timing:" lines);
+    # the library call is the PyTorch primitive for the same function
+    # (batch_norm_stats, _elemt, _backward_reduce, _backward_elemt), which the
+    # port never calls, and cudnn_ms cuDNN's BatchNorm + ReLU forward (BN1,
+    # BN2) or backward (BN3, BN4) at the same inputs.
+    for name, fn, replaces in BN_KERNELS:
+        kernels.append({
+            "name": fn,
+            "route": "cuda",
+            "source": "stereo_depth_estimation_tpu_torch/csrc/batchnorm.cu",
+            "replaces": replaces,
+            "launches": knobs["fused_block"]["counts"][name],
+            "max_abs_err": bn_errors[name],
+            "bound_by": "bytes",
+            **bn_times[name],
+            "multi_rank_launches": multi_rank[name],
+            "spatial_launches": {part: spatial[part][name] for part in spatial},
+        })
+    for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3", *BN_NAMES)):
         kernel["compiled_launches"] = compiled["launches"][name]
         kernel["knob_launches"] = {knob: r["counts"][name] for knob, r in knobs.items()}
+        kernel["train_loop_launches"] = loop["counts"][name]
     # K2 also runs every serving forward (float32): its launches there and
     # its times at the serving shapes, summed over the four levels.
-    kernels[-2]["serving_launches"] = serving_k2
+    k2 = kernels[2]
+    k2["serving_launches"] = serving_k2
     # The compiled serving forwards: the kernel's launch counter and, for the
     # live engine, the profiler's count (CUDA graph replays run no counter).
-    kernels[-2]["serving_compiled_launches"] = compiled_serving["k2"]
-    kernels[-2]["serving_f32"] = serving_pool
+    k2["serving_compiled_launches"] = compiled_serving["k2"]
+    k2["serving_f32"] = serving_pool
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

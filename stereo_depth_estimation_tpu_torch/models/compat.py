@@ -16,10 +16,14 @@ the reference loader also takes:
   spatially flipped (lax.conv_transpose is zero-insertion + correlation,
   torch's transposed conv the gradient of a correlation)
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+
+``rescale_resolution_transfer`` moves a trained model to a wider input, on
+the port's state dict.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -115,3 +119,33 @@ def load_torch_state_dict(
     model.load_state_dict(present, strict=False)
     missing = [k for k in torch_key_map() if k not in mapped]
     return missing, unexpected
+
+
+def rescale_resolution_transfer(
+    state_dict: Mapping[str, torch.Tensor], width_ratio: float
+) -> dict[str, torch.Tensor]:
+    """Adapt a trained StereoUNet's state dict to a ``width_ratio``-times
+    wider input: JAX ``models/compat.py::rescale_resolution_transfer`` on the
+    port's reference names.
+
+    Disparity scales with image width, so a model trained at one width
+    predicts means ``width_ratio`` times too small at a wider one, and
+    Laplace scales ``b`` that much too tight. This multiplies
+    ``disparity_head.weight`` and ``disparity_head.bias`` (the pre-softplus
+    output: exact where softplus is linear, disparity above ~1 px) by the
+    ratio and adds ``log(width_ratio)`` to ``logvar_head.bias`` (b' = ratio *
+    b). Every other entry is returned as it is: the model is fully
+    convolutional. The JAX package's docs/CONVERGENCE.md section 4 records
+    what it buys: a 96x128 pretrain moved to 240x320 with it reached val MAE
+    2.56 from 5.18 in 12 epochs, and stalled near 9 without it."""
+    if width_ratio <= 0:
+        raise ValueError(f"width_ratio must be positive, got {width_ratio}")
+    for head in ("disparity_head", "logvar_head"):
+        if f"{head}.weight" not in state_dict or f"{head}.bias" not in state_dict:
+            raise ValueError(f"the state dict has no '{head}' -- not a StereoUNet's? "
+                             f"(keys: {sorted(state_dict)[:6]} ...)")
+    out = dict(state_dict)
+    for key in ("disparity_head.weight", "disparity_head.bias"):
+        out[key] = state_dict[key] * width_ratio
+    out["logvar_head.bias"] = state_dict["logvar_head.bias"] + math.log(width_ratio)
+    return out

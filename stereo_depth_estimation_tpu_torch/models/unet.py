@@ -24,7 +24,10 @@ Built with ``bn_group``, a ``torch.distributed`` group of more than one rank,
 every BatchNorm is a ``MeshBatchNorm2d`` instead: its statistics are global
 over the group's ranks, as the JAX BatchNorm's are over the mesh. Its
 parameter and buffer names are ``nn.BatchNorm2d``'s, so checkpoints do not
-change.
+change. In training a ``MeshBatchNorm2d`` and the ReLU after it run on the
+hand-written kernels BN1-BN4 (``ops/batchnorm.py``, ``_BatchNormReLU``), as
+does ``fused_block``'s BatchNorm; eval mode, and the default model on one
+rank, stay on cuDNN's BatchNorm.
 
 Built with ``spatial_group``, a ``SpatialGroup`` (``ops/halo.py``) of more
 than one rank, the model runs on a height stripe of each image, as the JAX
@@ -74,47 +77,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..ops import batchnorm
 from ..ops.halo import SpatialGroup
 from ..ops.pool import max_pool_2x2
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group's ranks. The backward sums the incoming gradients
-    over the ranks the same way: each rank's sums feed every rank's loss."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-def _moment_sums(x: torch.Tensor, stats_dtype: torch.dtype) -> torch.Tensor:
-    """float32 (2C + 1,): the per-channel sum and sum of squares of NCHW
-    ``x`` and the element count per channel. In float32 the sums are
-    reduced directly; in a lower ``stats_dtype`` they are the count times
-    the mean and the mean square, each computed as the JAX BatchNorm does:
-    the squares and the means rounded to that dtype (the means accumulate
-    in float32), then cast to float32."""
-    n = x.numel() // x.shape[1]
-    count = torch.full((1,), n, dtype=torch.float32, device=x.device)
-    if stats_dtype == torch.float32:
-        xf = x.float()
-        return torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count])
-    xs = x.to(stats_dtype)
-    means = torch.cat([xs.mean(dim=(0, 2, 3)), (xs * xs).mean(dim=(0, 2, 3))]).float()
-    return torch.cat([means * n, count])
-
-
 def _moments(total: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean, var, n) from ``_moment_sums``' layout; var = E[x^2] - E[x]^2."""
+    """(mean, var, n) from BN1's (2C + 1) layout (the per-channel sums, the
+    sums of squares, the count); var = E[x^2] - E[x]^2."""
     n = total[2 * c]
     mean = total[:c] / n
     return mean, total[c : 2 * c] / n - mean * mean, n
@@ -132,16 +102,96 @@ def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
     bn.running_var.mul_(1.0 - m).add_(m * unbiased)
 
 
+_STATS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _scale(var: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """gamma / sqrt(var + eps): BN2's per-channel scale, computed the same
+    way in the forward and the backward."""
+    return torch.rsqrt(var + eps) * gamma
+
+
+def _bn_forward(z, gamma, beta, eps, stats_dtype, group, relu: bool):
+    """Training BatchNorm (+ ReLU) of channels_last ``z`` on BN1 and BN2:
+    (y, mean, var, n). With ``group`` the (2C + 1) sums are all-reduced, so
+    the statistics are the group's."""
+    z2 = batchnorm.rows(z)
+    total = batchnorm.bn_stats(z2, stats_dtype == torch.bfloat16)
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    mean, var, n = _moments(total, z.shape[1])
+    y = batchnorm.bn_relu_fwd(z2, mean, _scale(var, gamma, eps), beta, relu)
+    return batchnorm.unrows(y, z), mean, var, n
+
+
+def _bn_backward(dy, z, mean, var, gamma, beta, n, eps, group, relu: bool):
+    """The textbook batch-statistic backward of ``_bn_forward`` on BN3 and
+    BN4 (JAX ``_fcbr_bwd``): (dz, dgamma, dbeta). With ``group`` the two (C,)
+    sums are all-reduced; dgamma and dbeta stay this rank's share, as
+    autograd's are for a weight used on this rank."""
+    c = z.shape[1]
+    inv = torch.rsqrt(var + eps)
+    scale = _scale(var, gamma, eps)
+    # The incoming gradient's layout is autograd's; the kernels read rows.
+    dy2 = batchnorm.rows(dy.contiguous(memory_format=torch.channels_last))
+    z2 = batchnorm.rows(z)
+    local = batchnorm.bn_relu_bwd_sums(dy2, z2, mean, scale, beta, relu)
+    total = local
+    if group is not None:
+        total = local.clone()
+        dist.all_reduce(total, group=group)
+    t1, t2 = _dz_coefficients(total, inv, scale, n)
+    dz = batchnorm.bn_relu_bwd_dx(dy2, z2, mean, scale, beta, t1, t2, relu)
+    return batchnorm.unrows(dz, z), local[c:] * inv, local[:c]
+
+
+def _dz_coefficients(total, inv, scale, n) -> tuple[torch.Tensor, torch.Tensor]:
+    """BN4's (C,) t1 and t2 from BN3's sums ``total`` (of dyp, then of
+    dyp * (z - mean)): dz = dyp * scale - t1 - (z - mean) * t2, with
+    dbeta = the first sum and dgamma = the second times inv."""
+    c = total.shape[0] // 2
+    dbeta, dgamma = total[:c], total[c:] * inv
+    return scale * (dbeta / n), scale * (inv * dgamma / n)
+
+
+class _BatchNormReLU(torch.autograd.Function):
+    """Training batch-statistic BatchNorm, and the ReLU after it if
+    ``relu``, on the four kernels of ``ops/batchnorm.py``: BN1, the
+    all-reduce of its sums over ``group``, BN2; backward BN3, the all-reduce
+    of its two (C,) sums, BN4. Returns the activation and the batch's
+    (mean, var, n) for the running update. It saves the BatchNorm input,
+    the (C,) statistics and the affine."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, stats_dtype, group, relu):
+        y, mean, var, n = _bn_forward(x, gamma, beta, eps, stats_dtype, group, relu)
+        ctx.save_for_backward(x, mean, var, gamma, beta, n)
+        ctx.eps, ctx.group, ctx.relu = eps, group, relu
+        ctx.mark_non_differentiable(mean, var, n)
+        return y, mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        x, mean, var, gamma, beta, n = ctx.saved_tensors
+        dx, dgamma, dbeta = _bn_backward(dy, x, mean, var, gamma, beta, n, ctx.eps,
+                                         ctx.group, ctx.relu)
+        return dx, dgamma, dbeta, None, None, None, None
+
+
 class MeshBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm whose training statistics are computed as the JAX BatchNorm
     computes them (``stereo_depth_estimation_tpu/models/unet.py:64-79``): the
     per-channel sum and sum of squares reduced in ``stats_dtype`` (the JAX
-    model's ``bn_stats_dtype``) and cast to float32, var = E[x^2] - E[x]^2,
-    normalised in float32 and returned in the input's dtype. With ``group``
-    (several ranks) the sums and the element count are all-reduced, so the
-    statistics are global over the group, and the unbiased factor n/(n-1) of
-    the running variance takes the global n. Eval mode uses the running
-    statistics and no collective.
+    model's ``bn_stats_dtype``: float32 or bfloat16) and cast to float32,
+    var = E[x^2] - E[x]^2, normalised in float32 and returned in the input's
+    dtype. With ``group`` (several ranks) the sums and the element count are
+    all-reduced, so the statistics are global over the group, and the
+    unbiased factor n/(n-1) of the running variance takes the global n. Eval
+    mode uses the running statistics and no collective.
+
+    In training it runs on the BatchNorm kernels (``_BatchNormReLU``), and
+    ``forward_relu`` takes the ReLU that follows it into them. The input
+    must be channels_last.
 
     Not ``nn.SyncBatchNorm``: it refuses CPU tensors and gathers with
     ``all_gather``, which gloo does not run on CUDA tensors; this module
@@ -149,21 +199,24 @@ class MeshBatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int, group=None,
                  stats_dtype: torch.dtype = torch.float32) -> None:
+        if stats_dtype not in _STATS_DTYPES:
+            raise ValueError(f"bn_stats_dtype must be float32 or bfloat16, got {stats_dtype}")
         super().__init__(num_features)
         self.group = group
         self.stats_dtype = stats_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        total = _moment_sums(x, self.stats_dtype)
-        if self.group is not None:
-            total = _AllReduceSum.apply(total, self.group)
-        mean, var, n = _moments(total, self.num_features)
+        return self._train(x, relu=False) if self.training else super().forward(x)
+
+    def forward_relu(self, x: torch.Tensor) -> torch.Tensor:
+        """relu(self(x)), the ReLU taken into the kernels in training."""
+        return self._train(x, relu=True) if self.training else F.relu(super().forward(x))
+
+    def _train(self, x: torch.Tensor, relu: bool) -> torch.Tensor:
+        y, mean, var, n = _BatchNormReLU.apply(x, self.weight, self.bias, self.eps,
+                                               self.stats_dtype, self.group, relu)
         _update_running(self, mean, var, n)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.float() - mean[None, :, None, None]) * inv[None, :, None, None]
-        return (y + self.bias[None, :, None, None]).to(x.dtype)
+        return y
 
 
 def _batch_norm(channels: int, group, stats_dtype: torch.dtype) -> nn.BatchNorm2d:
@@ -246,19 +299,16 @@ class _FusedConvBNReLU(torch.autograd.Function):
     var, n) for the running update. It saves only the pre-BatchNorm output
     ``z``, the input, the weight, the (C,) statistics and the affine; the
     backward recomputes the ReLU mask and the centred ``z`` and feeds one
-    gradient to the convolution's data and filter gradients. With ``group``
-    the statistics' sums, and in the backward the two (C,) gradient sums,
-    are all-reduced (the weight and bias gradients stay this rank's share,
-    as ``MeshBatchNorm2d``'s do)."""
+    gradient to the convolution's data and filter gradients. The BatchNorm
+    and the ReLU run on the kernels of ``ops/batchnorm.py`` (``_bn_forward``,
+    ``_bn_backward``). With ``group`` the statistics' sums, and in the
+    backward the two (C,) gradient sums, are all-reduced (the weight and
+    bias gradients stay this rank's share, as ``MeshBatchNorm2d``'s do)."""
 
     @staticmethod
     def forward(ctx, x, weight, gamma, beta, padding, eps, stats_dtype, group):
         z = F.conv2d(x, weight.to(x.dtype), padding=padding)
-        total = _moment_sums(z, stats_dtype)
-        if group is not None:
-            dist.all_reduce(total, group=group)
-        mean, var, n = _moments(total, z.shape[1])
-        y = torch.relu(_bn_affine(z, mean, var, gamma, beta, eps)).to(z.dtype)
+        y, mean, var, n = _bn_forward(z, gamma, beta, eps, stats_dtype, group, relu=True)
         ctx.save_for_backward(x, weight, z, mean, var, gamma, beta, n)
         ctx.padding, ctx.eps, ctx.group = padding, eps, group
         ctx.mark_non_differentiable(mean, var, n)
@@ -267,31 +317,10 @@ class _FusedConvBNReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar, _dn):
         x, weight, z, mean, var, gamma, beta, n = ctx.saved_tensors
-        inv = torch.rsqrt(var + ctx.eps)
-        g = (gamma * inv)[None, :, None, None]
-        zc = z.float() - mean[None, :, None, None]
-        pre = _bn_affine(z, mean, var, gamma, beta, ctx.eps)  # the forward's, bitwise
-        dyp = torch.where(pre > 0, dy.float(), 0.0)
-        local = torch.cat([dyp.sum(dim=(0, 2, 3)), (dyp * zc).sum(dim=(0, 2, 3))])
-        total = local
-        if ctx.group is not None:
-            total = local.clone()
-            dist.all_reduce(total, group=ctx.group)
-        c = z.shape[1]
-        dbeta, dgamma = total[:c], total[c:] * inv
-        t1 = g * (dbeta / n)[None, :, None, None]
-        t2 = g * (inv * dgamma / n)[None, :, None, None]
-        dz = (dyp * g - t1 - zc * t2).to(z.dtype)
+        dz, dgamma, dbeta = _bn_backward(dy, z, mean, var, gamma, beta, n, ctx.eps,
+                                         ctx.group, relu=True)
         dx, dw = _conv_grads(dz, x, weight.to(x.dtype), ctx.padding)
-        return (dx, dw.to(weight.dtype), local[c:] * inv, local[:c],
-                None, None, None, None)
-
-
-def _bn_affine(z, mean, var, gamma, beta, eps) -> torch.Tensor:
-    """float32 (z - mean) * gamma / sqrt(var + eps) + beta, per channel."""
-    inv = torch.rsqrt(var + eps) * gamma
-    return ((z.float() - mean[None, :, None, None]) * inv[None, :, None, None]
-            + beta[None, :, None, None])
+        return dx, dw.to(weight.dtype), dgamma, dbeta, None, None, None, None
 
 
 class ConvBlock(nn.Module):
@@ -336,17 +365,27 @@ class ConvBlock(nn.Module):
                 _update_running(bn, mean, var, n)
                 x = y
             return x
+        conv0 = self.block[0]
         if skip is None:
-            return self.block(x)
-        conv0, xc = self.block[0], x.shape[1]
-        if self.skip_impl == "split":
+            z = conv0(x)
+        elif self.skip_impl == "split":
+            xc = x.shape[1]
             z = (conv0._conv_forward(_padded(conv0, x), conv0.weight[:, :xc], None)
                  + conv0._conv_forward(_padded(conv0, skip), conv0.weight[:, xc:], None))
         else:
             dtype = _compute_dtype(x)
             z = _ConcatConv.apply(_padded(conv0, x).to(dtype), _padded(conv0, skip).to(dtype),
                                   conv0.weight, conv0.padding)
-        return self.block[1:](z)
+        y = _bn_relu(self.block[1], self.block[2], z)
+        return _bn_relu(self.block[4], self.block[5], self.block[3](y))
+
+
+def _bn_relu(bn: nn.BatchNorm2d, relu: nn.ReLU, z: torch.Tensor) -> torch.Tensor:
+    """relu(bn(z)); a ``MeshBatchNorm2d`` in training takes the ReLU into its
+    kernels (``forward_relu``), and the ``nn.ReLU`` module is skipped."""
+    if isinstance(bn, MeshBatchNorm2d) and bn.training:
+        return bn.forward_relu(z)
+    return relu(bn(z))
 
 
 class _KeepRunningStats:

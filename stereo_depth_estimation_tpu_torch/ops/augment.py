@@ -295,6 +295,16 @@ def augment_with_factors(
     return img.clamp(0.0, 1.0)
 
 
+def augment_batch(
+    generator: torch.Generator, images: torch.Tensor, config: AugmentConfig
+) -> torch.Tensor:
+    """Augment a batch of RGB views (N,H,W,3) with independent per-image
+    draws: the factors (``sample_factors``), then the chain and the noise
+    (``augment_with_factors``), all from ``generator``."""
+    factors = sample_factors(generator, images.shape[0], config)
+    return augment_with_factors(generator, images, factors, config)
+
+
 def noise_and_clip_stereo(
     generator: torch.Generator,
     stereo: torch.Tensor,

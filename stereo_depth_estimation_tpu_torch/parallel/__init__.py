@@ -5,6 +5,7 @@ from .train_step import (
     compile_options_from,
     create_train_state,
     make_adamw,
+    make_device_data_train_loop,
     make_device_data_train_step,
     make_eval_step,
     make_lr_schedule,
@@ -19,6 +20,7 @@ __all__ = [
     "compile_options_from",
     "create_train_state",
     "make_adamw",
+    "make_device_data_train_loop",
     "make_device_data_train_step",
     "make_eval_step",
     "make_lr_schedule",

@@ -6,7 +6,9 @@ tensors) -> StereoUNet forward with uncertainty -> masked Laplace NLL ->
 backward -> AdamW, with the zero-valid-batch no-op gate. Nothing in the step
 waits for the host: the loss statistics come back as device tensors, the
 learning rate is computed on the device from AdamW's own step count, and the
-no-op gate selects on the device.
+no-op gate selects on the device. ``make_device_data_train_loop`` runs K such
+steps over a device-resident payload per call and stacks their stats on the
+device (JAX ``make_device_data_train_loop``).
 
 PyTorch updates in place where JAX returns new arrays: a step mutates the
 ``TrainState`` it is given (model weights, BatchNorm running stats, optimizer
@@ -40,7 +42,7 @@ group.
 Compiled (``create_train_state(..., compile=CompileOptions(...))``, the
 trainer's ``--compile``): the train and eval steps run the model through
 ``torch.compile`` (``compile_model``), one graph for the training forward
-and, through AOTAutograd, its backward, and one for eval. The four kernels
+and, through AOTAutograd, its backward, and one for eval. The CUDA kernels
 are ``torch.library`` custom ops, so they stay in the graph as calls. The
 augmentation (its randomness comes from the state's generator), the loss,
 the no-op gate and AdamW stay eager. On several ranks
@@ -416,6 +418,45 @@ def make_device_data_train_step(
     ``run(state) -> (state, stats)``."""
     return DeviceDataTrainStep(
         images_u8, targets, batch_size, step_fn or make_train_step(augment_config)
+    )
+
+
+class DeviceDataTrainLoop:
+    """K train steps per call over a DEVICE-RESIDENT dataset: JAX
+    ``make_device_data_train_loop``. Each step is a ``DeviceDataTrainStep``
+    call (the on-device gather, then the step); the K steps' ``LossStats``
+    are stacked on the device, so a call returns ``LossStats`` of (K,)
+    tensors and nothing waits for the host between the steps. The caller
+    reads the stats once per call."""
+
+    def __init__(self, step: DeviceDataTrainStep, steps_per_call: int) -> None:
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
+        self.step = step
+        self.steps_per_call = steps_per_call
+
+    def __call__(self, state: TrainState) -> tuple[TrainState, LossStats]:
+        stats = []
+        for _ in range(self.steps_per_call):
+            state, s = self.step(state)
+            stats.append(s)
+        return state, LossStats(*(torch.stack(field) for field in zip(*stats)))
+
+
+def make_device_data_train_loop(
+    images_u8: torch.Tensor,
+    targets: torch.Tensor,
+    batch_size: int,
+    augment_config: AugmentConfig | None = None,
+    steps_per_call: int = 10,
+    step_fn: Callable[[TrainState, Batch], tuple[TrainState, LossStats]] | None = None,
+) -> DeviceDataTrainLoop:
+    """``steps_per_call`` train steps per call over a device-resident payload:
+    ``run(state) -> (state, stats)``, each field of ``stats`` a
+    (steps_per_call,) tensor on the device."""
+    return DeviceDataTrainLoop(
+        make_device_data_train_step(images_u8, targets, batch_size, augment_config, step_fn),
+        steps_per_call,
     )
 
 

@@ -299,3 +299,60 @@ def test_stereo_views_augmented_independently() -> None:
     stereo = torch.cat([view, view], dim=-1)
     out = T.augment_stereo_batch(torch.Generator().manual_seed(1), stereo, T.AugmentConfig())
     assert not torch.allclose(out[..., :3], out[..., 3:], atol=1e-3)
+
+
+def test_augment_batch_equals_jax_chain_with_its_factors_and_noise() -> None:
+    """``augment_batch`` draws the factors and then the noise from its
+    generator: with the same draws taken from a copy of that generator, the
+    JAX chain (``_chain_pre_noise``) plus that noise, clamped, is what it
+    returns (ATOL)."""
+    import jax
+
+    images = _tie_rich_u8(4, 12, 16, 3, seed=9).astype(np.float32) / 255.0
+    cfg_j, cfg_t = A.AugmentConfig(blur_prob=0.5), T.AugmentConfig(blur_prob=0.5)
+    gen = torch.Generator().manual_seed(4)
+    copy = torch.Generator().manual_seed(4)
+    out = T.augment_batch(gen, torch.from_numpy(images), cfg_t).numpy()
+    factors = T.sample_factors(copy, 4, cfg_t)
+    noise = torch.randn(images.shape, generator=copy).numpy()
+    f = {k: v.numpy() for k, v in factors.items()}
+    chain = np.asarray(A._chain_pre_noise(jnp.asarray(images), _jax(f), cfg_j))
+    ref = np.clip(chain + noise * f["noise_std"][:, None, None, None], 0.0, 1.0)
+    assert out.shape == images.shape
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+    # With the noise off, the JAX augment_with_factors on those factors.
+    quiet_j, quiet_t = A.AugmentConfig(noise_std_max=0.0), T.AugmentConfig(noise_std_max=0.0)
+    out = T.augment_batch(torch.Generator().manual_seed(5), torch.from_numpy(images),
+                          quiet_t).numpy()
+    f = {k: v.numpy() for k, v in
+         T.sample_factors(torch.Generator().manual_seed(5), 4, quiet_t).items()}
+    ref = np.asarray(A.augment_with_factors(jax.random.key(0), jnp.asarray(images), _jax(f),
+                                            quiet_j))
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_augment_batch_draws_each_image_independently() -> None:
+    """Brightness alone on flat gray images: each image's factor is its
+    output over its input, uniform on [0.75, 1.25] and drawn per image; the
+    noise alone: each image's residual std is its own draw of U[0, 0.05]."""
+    n = 4000
+    images = torch.full((n, 2, 2, 3), 0.5)
+    off = dict(contrast_jitter=0.0, saturation_jitter=0.0, hue_jitter=0.0,
+               gamma_jitter=0.0, blur_prob=0.0)
+    out = T.augment_batch(torch.Generator().manual_seed(6), images,
+                          T.AugmentConfig(noise_std_max=0.0, **off))
+    factor = (out[:, 0, 0, 0] / 0.5).numpy()
+    assert np.allclose(out.numpy(), out[:, :1, :1, :1].numpy())  # one factor per image
+    assert 0.75 <= factor.min() and factor.max() <= 1.25
+    # Uniform: mean, spread and quartiles of U[0.75, 1.25] within sampling error.
+    assert abs(factor.mean() - 1.0) < 0.01
+    assert abs(factor.std() - 0.5 / np.sqrt(12)) < 0.01
+    assert np.allclose(np.quantile(factor, [0.25, 0.5, 0.75]), [0.875, 1.0, 1.125], atol=0.015)
+    assert len(np.unique(factor)) > 0.99 * n
+
+    flat = torch.full((64, 32, 32, 3), 0.5)
+    noisy = T.augment_batch(torch.Generator().manual_seed(7), flat,
+                            T.AugmentConfig(brightness_jitter=0.0, **off))
+    std = (noisy - 0.5).flatten(1).std(dim=1).numpy()
+    assert std.max() < 0.05 * 1.05 and std.min() < 0.01 and len(np.unique(std)) == 64
+    assert abs(std.mean() - 0.025) < 0.006  # mean of U[0, 0.05], 64 images

@@ -246,3 +246,38 @@ def test_prefetch_keeps_order_and_raises_worker_errors() -> None:
     early = pipeline.prefetch_to_device(iter(batches * 100), put=put, depth=1)
     assert int(next(early)["input"][0, 0]) == 0
     early.close()  # the worker stops instead of blocking on a full queue
+
+
+def test_tensor_codec_is_bitwise_the_numpy_codec_and_near_jax() -> None:
+    """The port's tensor codec against its numpy codec, bitwise: the decode
+    on every uint8 RGB triple, the encode on uniform disparities and on the
+    decoded codes. Against the JAX device codec: the encode bitwise on the
+    decoded codes (the JAX encode rounds in float32, numpy in float64, and
+    both land on the code there); the decode within one float32 ulp (JAX
+    multiplies by the float32 reciprocal of the scale, numpy divides). The
+    encode's JAX comparison takes the first 400,000 triples (R below 7:
+    disparities below 457 px), where the float32 product lands on the code;
+    far above that it can miss it by one."""
+    import jax.numpy as jnp
+
+    codes = np.arange(1 << 24, dtype=np.int64)
+    rgb = np.stack([codes >> 16, (codes >> 8) & 255, codes & 255], -1).astype(np.uint8)
+    got = codec.disparity_decode(torch.from_numpy(rgb)).numpy()
+    want = codec.disparity_decode_np(rgb)
+    assert got.dtype == np.float32 and got.shape == (1 << 24,)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    sample = rgb[:: 97]
+    jax_dec = np.asarray(j_codec.disparity_decode(jnp.asarray(sample)))
+    spacing = np.spacing(np.abs(want[:: 97]))
+    assert np.all(np.abs(got[:: 97] - jax_dec) <= spacing)
+
+    rng = np.random.default_rng(2)
+    disparity = rng.uniform(0.0, 400.0, (64, 96)).astype(np.float32)
+    encoded = codec.disparity_encode(torch.from_numpy(disparity))
+    assert encoded.dtype == torch.uint8 and encoded.shape == (64, 96, 3)
+    np.testing.assert_array_equal(encoded.numpy(), codec.disparity_encode_np(disparity))
+    decoded = want[: 400_000 : 7]
+    again = codec.disparity_encode(torch.from_numpy(decoded)).numpy()
+    np.testing.assert_array_equal(again, codec.disparity_encode_np(decoded))
+    np.testing.assert_array_equal(again, np.asarray(j_codec.disparity_encode(
+        jnp.asarray(decoded))))

@@ -199,3 +199,41 @@ def test_seeded_init_is_reproducible_and_channels_last() -> None:
     assert w.is_contiguous(memory_format=torch.channels_last)
     bound = 1.0 / np.sqrt(w.shape[1] * 9)
     assert float(w.abs().max()) <= bound
+
+
+@pytest.mark.parametrize("ratio", [2.5, 0.4], ids=["wider", "narrower"])
+def test_rescale_resolution_transfer_equals_jax(jax_variables, ratio) -> None:
+    """The port's function on the port's state dict, bitwise the JAX
+    function on the params carried across by ``state_dict_from_jax``."""
+    from stereo_depth_estimation_tpu.models.compat import (
+        rescale_resolution_transfer as jax_rescale,
+    )
+    from stereo_depth_estimation_tpu_torch.models.compat import rescale_resolution_transfer
+
+    variables = {"params": jax_variables["params"],
+                 "batch_stats": jax_variables["batch_stats"]}
+    want = state_dict_from_jax({**variables,
+                                "params": jax_rescale(variables["params"], ratio)})
+    before = state_dict_from_jax(variables)
+    got = rescale_resolution_transfer(before, ratio)
+    assert got.keys() == want.keys() == before.keys()
+    changed = {"disparity_head.weight", "disparity_head.bias", "logvar_head.bias"}
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+        if key not in changed:
+            assert got[key] is before[key], key
+    for key in ("disparity_head.weight", "logvar_head.bias"):
+        assert not torch.equal(got[key], before[key]), key
+
+
+def test_rescale_resolution_transfer_raises_as_jax_does(jax_variables) -> None:
+    from stereo_depth_estimation_tpu_torch.models.compat import rescale_resolution_transfer
+
+    sd = state_dict_from_jax(jax_variables)
+    for ratio in (0.0, -1.0):
+        with pytest.raises(ValueError, match="width_ratio must be positive"):
+            rescale_resolution_transfer(sd, ratio)
+    for head in ("disparity_head", "logvar_head"):
+        partial = {k: v for k, v in sd.items() if not k.startswith(head)}
+        with pytest.raises(ValueError, match=f"no '{head}'"):
+            rescale_resolution_transfer(partial, 2.0)

@@ -1,5 +1,5 @@
 """Rules the PyTorch port keeps: no JAX anywhere in it or in its scripts,
-no quiet CPU fallback for CUDA, and a kernel launcher that takes CUDA
+no quiet CPU fallback for CUDA, and kernel launchers that take CUDA
 tensors only."""
 
 import ast
@@ -13,7 +13,7 @@ import torch
 from stereo_depth_estimation_tpu_torch import _build
 from stereo_depth_estimation_tpu_torch._device import resolve_device
 from stereo_depth_estimation_tpu_torch.models import StereoUNet
-from stereo_depth_estimation_tpu_torch.ops import augment_cuda
+from stereo_depth_estimation_tpu_torch.ops import augment_cuda, batchnorm
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_depth_estimation_tpu_torch"
@@ -163,6 +163,31 @@ def test_kernel_launcher_refuses_cpu_tensors() -> None:
     out = augment_cuda.pointwise_chain(x, packed, 0, torch.float32)
     assert torch.equal(out, augment_cuda.pointwise_chain_plain(x, packed, 0, torch.float32))
     assert augment_cuda.pointwise_chain_cuda.launches == before
+
+
+def _bn_cases():
+    x, dy = torch.randn(12, 8), torch.randn(12, 8)
+    v = [torch.randn(8) for _ in range(5)]
+    return {
+        "bn_stats": (x, True),
+        "bn_relu_fwd": (x, *v[:3], True),
+        "bn_relu_bwd_sums": (dy, x, *v[:3], True),
+        "bn_relu_bwd_dx": (dy, x, *v, True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_bn_cases()))
+def test_batchnorm_launchers_refuse_cpu_tensors(name) -> None:
+    launcher = getattr(batchnorm, f"{name}_cuda")
+    args = _bn_cases()[name]
+    before = launcher.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launcher(*args)
+    assert launcher.launches == before
+    # Only the custom op sends CPU tensors to the plain version.
+    out = getattr(batchnorm, name)(*args)
+    assert torch.equal(out, getattr(batchnorm, f"{name}_plain")(*args))
+    assert launcher.launches == before
 
 
 def test_build_is_keyed_on_the_source(tmp_path) -> None:

@@ -317,3 +317,51 @@ def test_augmented_step_matches_jax_pallas_step(jax_setup) -> None:
     state, stats = P.make_train_step(AugmentConfig(**still))(state, _torch_batch(batch))
     _assert_stats_close(stats, jstats)
     _assert_weights_close(state, jnew)
+
+
+def test_device_data_train_loop_matches_jax_loop(jax_setup) -> None:
+    """K = 3 steps in one call against the JAX ``make_device_data_train_loop``:
+    float32, no augmentation, the batch the whole payload (one step an
+    epoch, so the two frameworks' permutations only reorder a batch). Each
+    step's LossStats within this file's tolerances."""
+    model, tx, jstate = jax_setup
+    data = _batch(11, uint8=True)
+    jloop = J.make_device_data_train_loop(
+        model, tx, jnp.asarray(data["input"]), jnp.asarray(data["target"]), 4, None,
+        steps_per_call=3)
+    with jax.default_matmul_precision("highest"):
+        _, jstats = jloop(jax.tree.map(jnp.copy, jstate))
+
+    loop = P.make_device_data_train_loop(
+        torch.from_numpy(data["input"]), torch.from_numpy(data["target"]), 4, None,
+        steps_per_call=3)
+    state, stats = loop(_port_state(jstate))
+    assert state.step == 3
+    assert all(tuple(s.shape) == (3,) for s in stats)
+    for k in range(3):
+        _assert_stats_close(LossStats(*(s[k] for s in stats)),
+                            LossStats(*(np.asarray(s)[k] for s in jstats)))
+
+
+def test_device_data_train_loop_is_k_device_data_steps(jax_setup) -> None:
+    """The loop's stacked LossStats and the weights after it are bitwise
+    those of K calls of ``make_device_data_train_step`` from the same state
+    and generator (a payload of two batches: the K = 3 steps cross an
+    epoch, so the permutations are drawn in the same order)."""
+    _, _, jstate = jax_setup
+    data = _torch_batch(_batch(12, n=8, uint8=True))
+    images, targets = data["input"], data["target"]
+    loop_state, loop_stats = P.make_device_data_train_loop(images, targets, 4, None, 3)(
+        _port_state(jstate))
+    step = P.make_device_data_train_step(images, targets, 4)
+    state, stats = _port_state(jstate), []
+    for _ in range(3):
+        state, s = step(state)
+        stats.append(s)
+    for name, got in zip(LossStats._fields, loop_stats):
+        assert torch.equal(got, torch.stack([getattr(s, name) for s in stats])), name
+    for (k, a), b in zip(loop_state.model.state_dict().items(),
+                         state.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    with pytest.raises(ValueError, match="steps_per_call must be at least 1"):
+        P.make_device_data_train_loop(images, targets, 4, None, 0)
