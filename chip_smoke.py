@@ -23,6 +23,12 @@ disparity codec against the numpy one, and drives the port's paths:
   counted;
 - the trainer CLI on the packed cache: a synthetic FoundationStereo-layout
   dataset, two epochs device-resident (pinned), then a resumed third;
+- the convergence harness (``scripts/convergence_run.py card``) at full
+  width on 288 scenes of the port's synthetic stereo generator for two
+  epochs, its artifact and the kernels' launches checked; then the rescale
+  CLI (``scripts/rescale_transfer.py``, width 128 to 320) on the run's
+  ``best.pt``, its disparity head held to 2.5x the original's and its
+  log-variance to the original's + log(2.5) in float32 on the card;
 - the serving path on that dataset and the trainer's ``last.pt`` (base 32,
   float32): the evaluate CLI (held against ``make_eval_step`` on the CPU),
   the predict CLI, and the live engine (640x480 captures rectified and
@@ -163,6 +169,7 @@ from stereo_depth_estimation_tpu_torch.parallel.mesh import (
     make_mesh,
     shard_batch_to_mesh,
 )
+from stereo_depth_estimation_tpu_torch.scripts import convergence_run, rescale_transfer
 from stereo_depth_estimation_tpu_torch.training import checkpoint, trainer
 
 BATCH, HW, PAYLOAD, STEPS, WARMUP = 128, (240, 320), 512, 5, 2
@@ -175,6 +182,23 @@ POOL_SHAPES = [(BATCH, HW[0] >> k, HW[1] >> k, 32 << k) for k in range(4)]
 POOL_RAGGED = [(2, 6, 10, 3), (2, 6, 10, 6), (3, 14, 22, 40), (1, 2, 2, 8)]
 # Trainer phase: a synthetic dataset above the training size (resize runs).
 TRAIN_SAMPLES, TRAIN_SOURCE_HW, TRAIN_BATCH = 160, (288, 384), 32
+# Convergence phase: the harness's card mode (convergence_run) at full width
+# (base 32, 240x320, batch 128, bf16, augmented, packed cache pinned on the
+# card) on CONV_SAMPLES samples of the port's synthetic stereo generator (8
+# scenes, seed 0) for CONV_EPOCHS epochs; then rescale_transfer from width
+# 128 to 320 on the run's best.pt, both models in float32 eval mode on the
+# card (TF32 off), on the validation set. The disparity head's pre-softplus
+# output must be 2.5x the original's within RESCALE_TOL of its largest
+# magnitude; the disparity itself 2.5x the original's within RESCALE_TOL
+# relative where softplus is linear (pre-activation above SOFTPLUS_LINEAR:
+# softplus(z) = z + log1p(exp(-z)), within 6.2e-6 of z there); the
+# log-variance the original's + log(2.5) within RESCALE_TOL absolute where
+# neither is clamped to [-6, 3]. The logvar head's weights are unchanged, so
+# its two outputs differ by the bias's rounding; the disparity head's
+# scaled weights round each product anew (float32 sums of 32 terms: about
+# 1e-6 of the largest magnitude). A wrong ratio or a missed bias reads O(1).
+CONV_SAMPLES, CONV_EPOCHS, CONV_RATIO = 288, 2, (128, 320)
+RESCALE_TOL, SOFTPLUS_LINEAR = 1e-4, 12.0
 # Serving phase, at the JAX serving CLIs' defaults: evaluate and predict at
 # batch 30, the live viewer at batch 1 from 640x480 captures; StereoUNet base
 # 32 in float32. Evaluate scores 60 samples of the set (two batches) and the
@@ -1022,6 +1046,119 @@ def phase_trainer(tmp: Path) -> Path:
           f"{resumed['global_step']} across the resume; last.pt in a fresh model predicts "
           "the trained model's disparity and log-variance exactly ok")
     return Path(resumed["checkpoints_dir"]) / "last.pt"
+
+
+def head_outputs(path: Path, inputs: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The float32 eval-mode StereoUNet of the checkpoint at ``path``, on the
+    card: disparity, log-variance and both heads' pre-activations."""
+    model = StereoUNet(base_channels=32, compute_dtype=torch.float32, device="cuda")
+    loaded = checkpoint.load_model_variables(path, model)
+    check(not loaded["missing_keys"] and not loaded["unexpected_keys"], f"{path}: {loaded}")
+    out = {}
+    hooks = [getattr(model, head).register_forward_hook(
+        lambda module, args, y, head=head: out.__setitem__(head, y.float()))
+        for head in ("disparity_head", "logvar_head")]
+    try:
+        out["disparity"], out["logvar"] = make_predict_fn(model)(inputs)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return out
+
+
+def phase_convergence(tmp: Path) -> dict[str, int]:
+    """The convergence harness's card mode at full width for CONV_EPOCHS
+    epochs on the port's generator's scenes: its artifact, the kernels'
+    launches (the trainer phase's pattern), then ``rescale_transfer`` on its
+    ``best.pt`` against the original model (the RESCALE_TOL checks).
+    Returns the launch counts of the run."""
+    work, docs = tmp / "convergence", tmp / "convergence_docs"
+    result, run_counts, seconds = counted(convergence_run.main, [
+        "card", "--epochs", str(CONV_EPOCHS), "--samples", str(CONV_SAMPLES),
+        "--workdir", str(work), "--docs-dir", str(docs)])
+    summary = result.pop("summary")
+    meta = json.loads((work / "data" / "synth_meta.json").read_text())
+    artifact = json.loads((docs / "card_metrics.json").read_text())
+    check(artifact == json.loads(json.dumps(result)), "card_metrics.json is not the run's")
+    series = artifact["series"]
+    check(series["epoch"] == list(range(1, CONV_EPOCHS + 1))
+          and all(math.isfinite(v) for key in convergence_run.METRIC_KEYS
+                  for v in series[key]), f"convergence series {series}")
+    check(artifact["device"]["name"] == torch.cuda.get_device_name(0)
+          and artifact["best_val_mae"] == min(series["val_mae"]),
+          f"convergence artifact {artifact['device']}, best {artifact['best_val_mae']}")
+    for name in ("first", "last"):
+        check((docs / f"card_preview_{name}_epoch.png").is_file(), f"no {name} preview")
+    check(summary["device_resident"] == "pinned",
+          f"convergence staged the set as {summary['device_resident']}, not pinned")
+    train_samples, val_samples = split_samples(discover_samples(work / "data"), 0.1, 42)
+    batch = artifact["config"]["batch_size"]
+    steps_per_epoch = len(train_samples) // batch  # pinned: whole batches
+    steps = CONV_EPOCHS * steps_per_epoch
+    val_batches = -(-len(val_samples) // batch)
+    # As the trainer phase: per train step the gray means, K1 and 4 K3; 4 K2
+    # per train step, per validation batch and per preview predict.
+    expected = expect_launches(GM=steps, K1=steps,
+                               K2=4 * (steps + CONV_EPOCHS * (val_batches + 1)),
+                               K3=4 * steps)
+    check(run_counts == expected, f"convergence launches {run_counts}, expected {expected}")
+    epoch_s = [e["epoch_seconds"] for e in summary["epochs"]]
+    print(f"convergence: generated {meta['samples']} samples ({meta['scenes']} scenes, seed "
+          f"{meta['seed']}) at {meta['height']}x{meta['width']} in "
+          f"{meta['elapsed_seconds']} s")
+    print(f"convergence: card mode, {CONV_EPOCHS} epochs of {steps_per_epoch} steps (batch "
+          f"{batch}, base 32, bf16, augmented, pinned; {len(train_samples)} train, "
+          f"{len(val_samples)} val) in {seconds:.1f} s (wall {artifact['wall_seconds']} s in "
+          f"train()); epochs {', '.join(f'{t:.2f}' for t in epoch_s)} s, "
+          f"{', '.join(f'{steps_per_epoch / t:.2f}' for t in epoch_s)} steps/s, "
+          f"{artifact['pairs_per_second']} pairs/s; val_mae "
+          f"{', '.join(f'{v:.4f}' for v in series['val_mae'])}; launches {run_counts} ok "
+          f"({artifact['device']['name']}, {artifact['device']['power_limit']})")
+
+    best = Path(summary["checkpoints_dir"]) / "best.pt"
+    source_width, target_width = CONV_RATIO
+    ratio = target_width / source_width
+    rescaled = rescale_transfer.main([
+        "--checkpoint", str(best), "--from-width", str(source_width),
+        "--to-width", str(target_width), "--out", str(tmp / "rescaled"),
+        "--base-channels", "32"])
+    saved = checkpoint.load_checkpoint_meta(rescaled)
+    check(saved["epoch"] == summary["best_epoch"]
+          and saved["config"]["rescale_width_ratio"] == ratio,
+          f"rescaled.pt meta {saved}")
+    val = torch.from_numpy(np.array(
+        PackedCache(work / "packed" / "val").load_all()["input"])).cuda()
+    was_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want, got = head_outputs(best, val), head_outputs(rescaled, val)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was_tf32
+    z, z_new = want["disparity_head"], got["disparity_head"]
+    pre_gap = float((z_new - ratio * z).abs().max() / (ratio * z).abs().max())
+    check(pre_gap <= RESCALE_TOL, f"rescaled disparity pre-activation gap {pre_gap:.3g} "
+          f"of its scale (tol {RESCALE_TOL})")
+    linear = z[:, 0] > SOFTPLUS_LINEAR
+    d, d_new = want["disparity"][linear], got["disparity"][linear]
+    disp_gap = float(((d_new - ratio * d).abs() / (ratio * d)).max()) if d.numel() else 0.0
+    check(disp_gap <= RESCALE_TOL, f"rescaled disparity {disp_gap:.3g} from {ratio}x the "
+          f"original's where softplus is linear (tol {RESCALE_TOL})")
+    shift = math.log(ratio)
+    free = (want["logvar"] > -6.0) & (want["logvar"] + shift < 3.0)
+    free &= (got["logvar"] > -6.0) & (got["logvar"] < 3.0)
+    check(bool(free.any()), "the log-variance is clamped at every pixel")
+    lv_gap = float((got["logvar"][free] - (want["logvar"][free] + shift)).abs().max())
+    check(lv_gap <= RESCALE_TOL, f"rescaled log-variance {lv_gap:.3g} from the original's "
+          f"+ log({ratio}) where unclamped (tol {RESCALE_TOL})")
+    pixels = linear.numel()
+    print(f"convergence: rescale_transfer {source_width} -> {target_width} on best.pt (epoch "
+          f"{summary['best_epoch']}), float32 eval on the card, {val.shape[0]} val pairs: "
+          f"disparity pre-activation (in [{float(z.min()):.4f}, {float(z.max()):.4f}]) within "
+          f"{pre_gap:.3g} of its scale of {ratio}x; "
+          f"disparity within {disp_gap:.3g} relative of {ratio}x over {int(linear.sum())} of "
+          f"{pixels} pixels where softplus is linear; log-variance within {lv_gap:.3g} of "
+          f"+{shift:.6f} over {int(free.sum())} unclamped pixels (tol {RESCALE_TOL}) ok")
+    return run_counts
 
 
 def rotation(rx: float, ry: float, rz: float) -> np.ndarray:
@@ -3252,6 +3389,8 @@ def run_all(caches: Path) -> int:
         # cuDNN's autotuning (none of them turns it on).
         last_pt = phase_trainer(Path(tmp))
         mark("trainer")
+        convergence = phase_convergence(Path(tmp))
+        mark("convergence")
         serving_k2 = phase_serving(Path(tmp), last_pt)
         mark("serving")
         multi_rank = phase_multi_rank(Path(tmp))
@@ -3323,6 +3462,7 @@ def run_all(caches: Path) -> int:
             "spatial_launches": {part: spatial[part][name] for part in spatial},
         })
     for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3", *BN_NAMES)):
+        kernel["convergence_launches"] = convergence[name]
         kernel["compiled_launches"] = compiled["launches"][name]
         kernel["knob_launches"] = {knob: r["counts"][name] for knob, r in knobs.items()}
         kernel["train_loop_launches"] = loop["counts"][name]
