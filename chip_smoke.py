@@ -28,7 +28,14 @@ disparity codec against the numpy one, and drives the port's paths:
   epochs, its artifact and the kernels' launches checked; then the rescale
   CLI (``scripts/rescale_transfer.py``, width 128 to 320) on the run's
   ``best.pt``, its disparity head held to 2.5x the original's and its
-  log-variance to the original's + log(2.5) in float32 on the card;
+  log-variance to the original's + log(2.5) in float32 on the card; then the
+  progressive-resolution transfer on the same scenes: the kernels held
+  against their plain versions at the 96x128 and 128x160 runs' shapes (batch
+  256), the harness at 96x128 and batch 256, the rescale CLI on its
+  ``best.pt``, and a finetune at 240x320 from ``rescaled.pt`` and one from
+  ``best.pt`` as it is, each starting from weights bitwise those of the
+  in-process rescale (or of ``best.pt``), with its artifact and launches
+  checked;
 - the serving path on that dataset and the trainer's ``last.pt`` (base 32,
   float32): the evaluate CLI (held against ``make_eval_step`` on the CPU),
   the predict CLI, and the live engine (640x480 captures rectified and
@@ -125,6 +132,7 @@ from stereo_depth_estimation_tpu_torch.eval import evaluate, predict
 from stereo_depth_estimation_tpu_torch.eval.preview import normalize_map
 from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatcher, LiveDepthEngine
 from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
+from stereo_depth_estimation_tpu_torch.models.compat import rescale_resolution_transfer
 from stereo_depth_estimation_tpu_torch.ops import batchnorm, pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
@@ -199,6 +207,21 @@ TRAIN_SAMPLES, TRAIN_SOURCE_HW, TRAIN_BATCH = 160, (288, 384), 32
 # 1e-6 of the largest magnitude). A wrong ratio or a missed bias reads O(1).
 CONV_SAMPLES, CONV_EPOCHS, CONV_RATIO = 288, 2, (128, 320)
 RESCALE_TOL, SOFTPLUS_LINEAR = 1e-4, 12.0
+# Then the progressive-resolution transfer (docs/CONVERGENCE.md section 4) on
+# the same scenes: the harness at TRANSFER_HW, batch TRANSFER_BATCH (the 260
+# train samples give one whole step) for CONV_EPOCHS epochs, rescale_transfer
+# 128 -> 320 on its best.pt, and the harness at 240x320 (batch 128) for
+# FINETUNE_EPOCHS from rescaled.pt, then from best.pt as it is (naive). The
+# weights each finetune starts from, as the trainer loads them, must equal
+# bitwise rescale_resolution_transfer of best.pt (naive: best.pt's).
+TRANSFER_HW, TRANSFER_BATCH, FINETUNE_EPOCHS = (96, 128), 256, 1
+# The kernels at the shapes of the fast (96x128) and mid (128x160) runs, batch
+# 256, bf16: K1 and the gray means at (256, h, w, 6) with the blur on (the
+# default blur_prob and every view), at phase_kernel_checks' and
+# phase_gray_mean_checks' tolerances; K2 and K3 on each of the four pool
+# levels at the model's widths (32, 64, 128, 256 channels; 96x128 pools down
+# to 6x8, 128x160 to 8x10), tolerance 0 as phase_pool_checks.
+TRANSFER_SHAPES = [(TRANSFER_BATCH, 96, 128), (TRANSFER_BATCH, 128, 160)]
 # Serving phase, at the JAX serving CLIs' defaults: evaluate and predict at
 # batch 30, the live viewer at batch 1 from 640x480 captures; StereoUNet base
 # 32 in float32. Evaluate scores 60 samples of the set (two batches) and the
@@ -1066,54 +1089,69 @@ def head_outputs(path: Path, inputs: torch.Tensor) -> dict[str, torch.Tensor]:
     return out
 
 
-def phase_convergence(tmp: Path) -> dict[str, int]:
-    """The convergence harness's card mode at full width for CONV_EPOCHS
-    epochs on the port's generator's scenes: its artifact, the kernels'
-    launches (the trainer phase's pattern), then ``rescale_transfer`` on its
-    ``best.pt`` against the original model (the RESCALE_TOL checks).
-    Returns the launch counts of the run."""
-    work, docs = tmp / "convergence", tmp / "convergence_docs"
+def harness_run(work: Path, docs: Path, tag: str, epochs: int,
+                *extra: str) -> tuple[dict, dict, dict[str, int]]:
+    """The convergence harness's card mode on the phase's scenes, counted:
+    its artifact (finite metrics, the card, the previews), the set pinned,
+    and the kernels' launches (the trainer phase's pattern). Returns the
+    artifact, the trainer's summary and the counts."""
     result, run_counts, seconds = counted(convergence_run.main, [
-        "card", "--epochs", str(CONV_EPOCHS), "--samples", str(CONV_SAMPLES),
-        "--workdir", str(work), "--docs-dir", str(docs)])
+        "card", "--epochs", str(epochs), "--samples", str(CONV_SAMPLES),
+        "--workdir", str(work), "--docs-dir", str(docs), "--tag", tag, *extra])
     summary = result.pop("summary")
-    meta = json.loads((work / "data" / "synth_meta.json").read_text())
-    artifact = json.loads((docs / "card_metrics.json").read_text())
-    check(artifact == json.loads(json.dumps(result)), "card_metrics.json is not the run's")
+    artifact = json.loads((docs / f"card_metrics{tag}.json").read_text())
+    check(artifact == json.loads(json.dumps(result)), f"card_metrics{tag}.json is not the run's")
     series = artifact["series"]
-    check(series["epoch"] == list(range(1, CONV_EPOCHS + 1))
+    check(series["epoch"] == list(range(1, epochs + 1))
           and all(math.isfinite(v) for key in convergence_run.METRIC_KEYS
-                  for v in series[key]), f"convergence series {series}")
+                  for v in series[key]), f"convergence{tag} series {series}")
     check(artifact["device"]["name"] == torch.cuda.get_device_name(0)
           and artifact["best_val_mae"] == min(series["val_mae"]),
-          f"convergence artifact {artifact['device']}, best {artifact['best_val_mae']}")
+          f"convergence{tag} artifact {artifact['device']}, best {artifact['best_val_mae']}")
     for name in ("first", "last"):
-        check((docs / f"card_preview_{name}_epoch.png").is_file(), f"no {name} preview")
+        check((docs / f"card_preview{tag}_{name}_epoch.png").is_file(),
+              f"no {name} preview{tag}")
     check(summary["device_resident"] == "pinned",
-          f"convergence staged the set as {summary['device_resident']}, not pinned")
+          f"convergence{tag} staged the set as {summary['device_resident']}, not pinned")
     train_samples, val_samples = split_samples(discover_samples(work / "data"), 0.1, 42)
     batch = artifact["config"]["batch_size"]
     steps_per_epoch = len(train_samples) // batch  # pinned: whole batches
-    steps = CONV_EPOCHS * steps_per_epoch
+    steps = epochs * steps_per_epoch
     val_batches = -(-len(val_samples) // batch)
     # As the trainer phase: per train step the gray means, K1 and 4 K3; 4 K2
     # per train step, per validation batch and per preview predict.
     expected = expect_launches(GM=steps, K1=steps,
-                               K2=4 * (steps + CONV_EPOCHS * (val_batches + 1)),
+                               K2=4 * (steps + epochs * (val_batches + 1)),
                                K3=4 * steps)
-    check(run_counts == expected, f"convergence launches {run_counts}, expected {expected}")
+    check(run_counts == expected, f"convergence{tag} launches {run_counts}, "
+          f"expected {expected}")
     epoch_s = [e["epoch_seconds"] for e in summary["epochs"]]
-    print(f"convergence: generated {meta['samples']} samples ({meta['scenes']} scenes, seed "
-          f"{meta['seed']}) at {meta['height']}x{meta['width']} in "
-          f"{meta['elapsed_seconds']} s")
-    print(f"convergence: card mode, {CONV_EPOCHS} epochs of {steps_per_epoch} steps (batch "
-          f"{batch}, base 32, bf16, augmented, pinned; {len(train_samples)} train, "
-          f"{len(val_samples)} val) in {seconds:.1f} s (wall {artifact['wall_seconds']} s in "
-          f"train()); epochs {', '.join(f'{t:.2f}' for t in epoch_s)} s, "
+    h, w = artifact["config"]["resolution"]
+    init = artifact["config"]["init_checkpoint"]
+    print(f"convergence{tag}: card mode at {h}x{w}, {epochs} epochs of {steps_per_epoch} "
+          f"steps (batch {batch}, base 32, bf16, augmented, pinned; {len(train_samples)} "
+          f"train, {len(val_samples)} val{f', from {Path(init).name}' if init else ''}) in "
+          f"{seconds:.1f} s (wall {artifact['wall_seconds']} s in train()); epochs "
+          f"{', '.join(f'{t:.2f}' for t in epoch_s)} s, "
           f"{', '.join(f'{steps_per_epoch / t:.2f}' for t in epoch_s)} steps/s, "
           f"{artifact['pairs_per_second']} pairs/s; val_mae "
           f"{', '.join(f'{v:.4f}' for v in series['val_mae'])}; launches {run_counts} ok "
           f"({artifact['device']['name']}, {artifact['device']['power_limit']})")
+    return artifact, summary, run_counts
+
+
+def phase_convergence(tmp: Path) -> dict[str, dict[str, int]]:
+    """The convergence harness's card mode at full width for CONV_EPOCHS
+    epochs on the port's generator's scenes, then ``rescale_transfer`` on its
+    ``best.pt`` against the original model (the RESCALE_TOL checks), then the
+    progressive-resolution transfer (``phase_transfer``). Returns the launch
+    counts of each harness run."""
+    work, docs = tmp / "convergence", tmp / "convergence_docs"
+    _, summary, run_counts = harness_run(work, docs, "", CONV_EPOCHS)
+    meta = json.loads((work / "data" / "synth_meta.json").read_text())
+    print(f"convergence: generated {meta['samples']} samples ({meta['scenes']} scenes, seed "
+          f"{meta['seed']}) at {meta['height']}x{meta['width']} in "
+          f"{meta['elapsed_seconds']} s")
 
     best = Path(summary["checkpoints_dir"]) / "best.pt"
     source_width, target_width = CONV_RATIO
@@ -1158,7 +1196,106 @@ def phase_convergence(tmp: Path) -> dict[str, int]:
           f"disparity within {disp_gap:.3g} relative of {ratio}x over {int(linear.sum())} of "
           f"{pixels} pixels where softplus is linear; log-variance within {lv_gap:.3g} of "
           f"+{shift:.6f} over {int(free.sum())} unclamped pixels (tol {RESCALE_TOL}) ok")
-    return run_counts
+    return {"card": run_counts, **phase_transfer(tmp, work, docs)}
+
+
+def transfer_kernel_checks() -> None:
+    """K1, the gray means, K2 and K3 against their plain versions at the
+    fast and mid runs' shapes (TRANSFER_SHAPES)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    for n, h, w in TRANSFER_SHAPES:
+        for bp in (AugmentConfig().blur_prob, 1.0):
+            images, packed, blur_k = kernel_case(gen, n, h, w, bp)
+            err, _ = compare_kernel(images, packed, blur_k, torch.bfloat16)
+            brightness = torch.rand(2 * n, device="cuda", generator=gen) * 0.5 + 0.75
+            first, second = gray_means_cuda(images, brightness), gray_means_cuda(images, brightness)
+            ref = gray_means_plain(images, brightness)
+            torch.cuda.synchronize()
+            gm_err = float((first - ref).abs().max())
+            check(gm_err <= F32_TOL, f"gray means vs plain err {gm_err} at {n}x{h}x{w}")
+            check(torch.equal(first.view(torch.int32), second.view(torch.int32)),
+                  f"gray means differ between two runs at {n}x{h}x{w}")
+            blurred = int((packed[:, [6, 14]] > 0).sum())
+            print(f"transfer check: K1 {n}x{h}x{w} blur_prob={bp} blur_k={blur_k} "
+                  f"blurred_views={blurred} out=bfloat16 max_abs_err={err:.3g} tol=1 bf16 ulp "
+                  f"+ {F32_TOL:g}; gray means max_abs_err={gm_err:.3g} tol={F32_TOL:g}, two "
+                  "runs bitwise equal ok")
+            del images, packed, first, second, ref
+        for k in range(4):
+            shape = (n, h >> k, w >> k, 32 << k)
+            x = tie_rich(gen, shape, torch.bfloat16)
+            y, idx = pool.maxpool2x2_fwd_cuda(x)
+            ref_y, ref_idx = pool.maxpool2x2_fwd_plain(x)
+            dy = torch.randn(y.shape, device="cuda", generator=gen).to(torch.bfloat16)
+            dx = pool.maxpool2x2_bwd_cuda(dy, idx)
+            ref_dx = pool.maxpool2x2_bwd_plain(dy, ref_idx)
+            torch.cuda.synchronize()
+            check(equal_nan(y, ref_y) and torch.equal(idx, ref_idx),
+                  f"K2 differs from its plain version at {shape} bf16")
+            check(equal_nan(dx, ref_dx), f"K3 differs from its plain version at {shape} bf16")
+            print(f"transfer check: {'x'.join(map(str, shape))} bf16 -> "
+                  f"{y.shape[1]}x{y.shape[2]}: K2 y, idx and K3 dx equal to the plain versions "
+                  "(tol 0) ok")
+            del x, y, idx, dy, dx, ref_y, ref_idx, ref_dx
+
+
+def phase_transfer(tmp: Path, work: Path, docs: Path) -> dict[str, dict[str, int]]:
+    """The progressive-resolution transfer through the harness (see
+    TRANSFER_HW): the fast pretrain, ``rescale_transfer`` on its ``best.pt``,
+    the rescaled and the naive finetune at 240x320, each with its artifact
+    and launches checked, and the weights each finetune starts from (caught
+    at the trainer's own ``load_model_variables``) held bitwise against
+    ``rescale_resolution_transfer`` of ``best.pt`` (naive: ``best.pt``).
+    Returns the launch counts of each run."""
+    transfer_kernel_checks()
+    source_width, target_width = TRANSFER_HW[1], HW[1]
+    runs = {}
+    fast, fast_summary, runs["fast"] = harness_run(
+        work, docs, "_fast", CONV_EPOCHS, "--height", str(TRANSFER_HW[0]),
+        "--width", str(TRANSFER_HW[1]), "--batch-size", str(TRANSFER_BATCH))
+    check(fast["config"]["resolution"] == list(TRANSFER_HW)
+          and fast["config"]["batch_size"] == TRANSFER_BATCH, f"fast config {fast['config']}")
+    best = Path(fast_summary["checkpoints_dir"]) / "best.pt"
+    rescaled = rescale_transfer.main([
+        "--checkpoint", str(best), "--from-width", str(source_width),
+        "--to-width", str(target_width), "--out", str(tmp / "rescaled_fast"),
+        "--base-channels", "32"])
+    original = StereoUNet(base_channels=32, device="cpu")
+    checkpoint.load_model_variables(best, original)
+    wants = {"prog_rescaled": rescale_resolution_transfer(
+        original.state_dict(), target_width / source_width), "prog_naive": original.state_dict()}
+
+    load = trainer.load_model_variables
+    for tag, init in (("prog_rescaled", rescaled), ("prog_naive", best)):
+        started = {}
+
+        def load_and_keep(path, model):
+            loaded = load(path, model)
+            started.update({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+            return loaded
+
+        trainer.load_model_variables = load_and_keep
+        try:
+            artifact, _, runs[tag] = harness_run(
+                work, docs, f"_{tag}", FINETUNE_EPOCHS, "--init-checkpoint", str(init))
+        finally:
+            trainer.load_model_variables = load
+        check(artifact["config"]["init_checkpoint"] == str(init)
+              and artifact["config"]["resolution"] == [240, 320],
+              f"{tag} artifact config {artifact['config']}")
+        want = wants[tag]
+        check(started.keys() == want.keys()
+              and all(torch.equal(started[k], want[k]) for k in want),
+              f"{tag}: the weights the trainer started from are not "
+              f"{'the rescale of ' if tag == 'prog_rescaled' else ''}best.pt's")
+        print(f"convergence_{tag}: the trainer started from {init.name} (epoch "
+              f"{fast_summary['best_epoch']} of the {TRANSFER_HW[0]}x{TRANSFER_HW[1]} run), "
+              f"all {len(want)} tensors bitwise "
+              + ("rescale_resolution_transfer(best.pt, "
+                 f"{target_width / source_width:g}) in this process" if tag == "prog_rescaled"
+                 else "best.pt's") + " ok")
+    return runs
 
 
 def rotation(rx: float, ry: float, rz: float) -> np.ndarray:
@@ -3462,7 +3599,7 @@ def run_all(caches: Path) -> int:
             "spatial_launches": {part: spatial[part][name] for part in spatial},
         })
     for kernel, name in zip(kernels, ("K1", "GM", "K2", "K3", *BN_NAMES)):
-        kernel["convergence_launches"] = convergence[name]
+        kernel["convergence_launches"] = {run: c[name] for run, c in convergence.items()}
         kernel["compiled_launches"] = compiled["launches"][name]
         kernel["knob_launches"] = {knob: r["counts"][name] for knob, r in knobs.items()}
         kernel["train_loop_launches"] = loop["counts"][name]
