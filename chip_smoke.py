@@ -11,7 +11,10 @@ plain PyTorch version on the card (BN1-BN4, the BatchNorm + ReLU kernels of
 ``csrc/batchnorm.cu``, at the main path's 18 BatchNorm shapes in bf16, at
 batch 16 in float32 and with bf16 statistics, at C = 4 and 36 and ragged
 row counts, each launched twice and bitwise repeatable), holds the tensor
-disparity codec against the numpy one, and drives the port's paths:
+disparity codec against the numpy one, holds a fresh model built as the
+trainer builds it (base 32, bf16, seed 42, on the card) to the JAX package's
+initialisers and, bitwise, to the one built on the CPU from the same seed
+(the "init:" line), and drives the port's paths:
 
 - the augmented StereoUNet train step at full width (base 32, 240x320, batch
   128, bf16, over a device-resident uint8 payload), then predict: the
@@ -2135,8 +2138,7 @@ def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
     one augmented batch (flat AdamW: the second step against AdamW's), a
     planted hybrid fault that must miss, remat in float32 (``remat_in_f32``),
     then KNOB_STEPS timed train steps with their launches and peak memory."""
-    default = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
-                         generator=torch.Generator().manual_seed(0))
+    default = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
     weights = {k: v.clone() for k, v in default.state_dict().items()}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -2244,8 +2246,7 @@ def multi_rank_steps(mesh: Mesh, batch: dict[str, torch.Tensor], steps: int,
     both above what was held before it (``step_peak_bytes``,
     ``step_forward_bytes``). With ``save_to``, the train state before each
     step and after the last is saved there as ``state<k>.pt``."""
-    model = StereoUNet(base_channels=32, device=mesh.device,
-                       generator=torch.Generator().manual_seed(0),
+    model = seeded_model(base_channels=32, device=mesh.device,
                        bn_group=mesh.group if mesh.distributed else None,
                        spatial_group=mesh.spatial_group)
     state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), 0, mesh)
@@ -2841,8 +2842,7 @@ def phase_reference_step() -> None:
     }
     results = {}
     for device, impl in (("cpu", "auto"), ("cuda", "kernel")):
-        model = StereoUNet(base_channels=8, device=device,
-                           generator=torch.Generator().manual_seed(0))
+        model = seeded_model(base_channels=8, device=device)
         state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), 0)
         step = make_train_step(AugmentConfig(impl=impl, **still))
         state, stats = step(state, {k: v.to(device) for k, v in batch.items()})
@@ -2940,8 +2940,7 @@ def phase_train_loop(images: torch.Tensor, targets: torch.Tensor) -> dict:
     (first allocations). Counts the host synchronisations it warns of and
     names each one's source line; checks the launches and the stacked
     LossStats."""
-    model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
-                       generator=torch.Generator().manual_seed(0))
+    model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
     state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0)
     loop = make_device_data_train_loop(images, targets, BATCH, AugmentConfig(),
                                        steps_per_call=LOOP_STEPS)
@@ -3010,6 +3009,83 @@ def phase_codec_check() -> None:
     print(f"codec: disparity_decode on the card bitwise equal to disparity_decode_np on all "
           f"{len(codes)} RGB triples, disparity_encode to disparity_encode_np on "
           f"{len(disparity)} disparities ok")
+
+
+def seeded_model(**kwargs) -> StereoUNet:
+    """A ``StereoUNet(**kwargs)`` with every conv and transposed-conv weight
+    and bias drawn as PyTorch's own layers draw them, U(+-1/sqrt(fan_in))
+    with fan_in = ``weight.shape[1] * kh * kw``, from seed 0 on the CPU: the
+    weights every limit of the phases that build their own model was
+    measured on. A fresh model of the port draws the JAX package's init
+    (``phase_init``; the trainer's phases run on it); from that init the
+    bf16 knob comparisons read about twice their gaps on these weights
+    (fused_block 0.100 of a leaf's norm, split 0.065, on an H100)."""
+    model = StereoUNet(**kwargs)
+    generator = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                bound = 1.0 / math.sqrt(module.weight[0].numel())
+                for p in (module.weight, module.bias):
+                    if p is not None:
+                        p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+    return model
+
+
+# The fresh-init check: a weight's std * sqrt(fan_in) within INIT_STD_TOL of
+# 1.0 where it has at least INIT_LARGE elements (up1 at base 32), within
+# INIT_SMALL_TOL for enc1's first conv (1,728 elements); |w| * sqrt(fan_in) at
+# most INIT_TRUNCATION (2 / 0.87962566, flax's lecun_normal truncation).
+INIT_LARGE = 8192
+INIT_STD_TOL = 0.03
+INIT_SMALL_TOL = 0.10
+INIT_TRUNCATION = 2.2737
+
+
+def phase_init() -> None:
+    """A fresh model built as the trainer builds it (base 32, bf16, seed 42,
+    on the card) holds the JAX package's initialisers: truncated LeCun-normal
+    kernels, zero biases, fresh BatchNorm; and equals, bitwise, the model
+    built on the CPU from the same seed."""
+    def build(device: str) -> dict[str, torch.Tensor]:
+        model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device=device,
+                           generator=torch.Generator().manual_seed(42))
+        return model.state_dict()
+
+    on_card, on_cpu = build("cuda"), build("cpu")
+    check(all(v.device.type == "cuda" for v in on_card.values()), "fresh model not on the card")
+    check(on_card.keys() == on_cpu.keys(), "fresh model keys differ from the CPU model's")
+    unequal = [k for k in on_cpu if not torch.equal(on_card[k].cpu(), on_cpu[k])]
+    check(not unequal, f"fresh model on the card differs from the CPU model at {unequal}")
+    stds, peaks, small = [], [], []
+    for key, value in on_card.items():
+        w = value.double()
+        if w.ndim == 4:
+            transposed = key.split(".")[0].startswith("up")
+            fan_in = w.shape[0 if transposed else 1] * w.shape[2] * w.shape[3]
+            std = float(w.std()) * math.sqrt(fan_in)
+            peak = float(w.abs().max()) * math.sqrt(fan_in)
+            peaks.append(peak)
+            check(peak <= INIT_TRUNCATION, f"{key}: max |w| * sqrt(fan_in) {peak:.5f}")
+            if w.numel() >= INIT_LARGE:
+                stds.append(std)
+                check(abs(std - 1.0) <= INIT_STD_TOL, f"{key}: std * sqrt(fan_in) {std:.5f}")
+            elif key == "enc1.block.0.weight":
+                small.append(std)
+                check(abs(std - 1.0) <= INIT_SMALL_TOL, f"{key}: std * sqrt(fan_in) {std:.5f}")
+        elif key.endswith((".bias", "running_mean")):
+            check(not w.any(), f"{key} is not 0")
+        elif key.endswith(("running_var", ".weight")):
+            check(bool((w == 1).all()), f"{key} is not 1")
+    check(len(stds) == 21 and len(small) == 1, f"{len(stds)} large weights, {len(small)} small")
+    biases = [k for k in on_card if k.endswith(".bias")]
+    print(f"init: StereoUNet base 32 bf16 seed 42 on the card: {len(peaks)} weights, std * "
+          f"sqrt(fan_in) {min(stds):.4f}-{max(stds):.4f} over the {len(stds)} of at least "
+          f"{INIT_LARGE} elements (limit 1 +- {INIT_STD_TOL}), enc1's first conv "
+          f"{small[0]:.4f} (1 +- {INIT_SMALL_TOL}); max |w| * sqrt(fan_in) "
+          f"{min(peaks):.4f}-{max(peaks):.4f} (at most {INIT_TRUNCATION}); {len(biases)} "
+          f"biases all 0; BatchNorm weight 1, running mean 0, var 1; bitwise equal to the "
+          f"model built on the CPU from the same seed ok")
 
 
 def reset_counts() -> None:
@@ -3139,8 +3215,7 @@ def compiled_main_path(images: torch.Tensor, targets: torch.Tensor):
     trainer's ``--compile`` compiles it (Inductor, mode default, fullgraph),
     after its first step: that step's seconds (the compile) and the graphs it
     made."""
-    model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
-                       generator=torch.Generator().manual_seed(0))
+    model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
     state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0,
                                compile=CompileOptions())
     runner = make_device_data_train_step(images, targets, BATCH, AugmentConfig())
@@ -3368,6 +3443,8 @@ def run_all(caches: Path) -> int:
     mark("BN1-BN4 checks")
     phase_codec_check()
     mark("codec check")
+    phase_init()
+    mark("fresh-init check")
     phase_reference_step()
     mark("reference step")
 
@@ -3381,8 +3458,7 @@ def run_all(caches: Path) -> int:
                            generator=gen)
     targets = torch.rand((PAYLOAD, *HW), device="cuda", generator=gen) * 63.5 + 0.5
     targets[:, :8] = 0.0  # a band of invalid pixels
-    model = StereoUNet(base_channels=32, compute_dtype=torch.bfloat16, device="cuda",
-                       generator=torch.Generator().manual_seed(0))
+    model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
     state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0)
     runner = make_device_data_train_step(images, targets, BATCH, AugmentConfig())
     torch.cuda.reset_peak_memory_stats()

@@ -7,6 +7,8 @@ CUDA kernels K2/K3 on the card); 2x2 stride-2 ConvTranspose
 (with bias) up, then a skip concat; 1x1 ``softplus`` disparity head and 1x1
 log-variance head clamped to [-6, 3], both in float32. 7,763,938 parameters at
 base 32.
+A fresh model is drawn from the JAX package's initialisers (truncated
+LeCun-normal kernels, zero biases: ``StereoUNet.reset_parameters``).
 
 Parameter names are the reference PyTorch model's (``enc1.block.0.weight``,
 ``up4.weight``, ``disparity_head.weight``, ...), so a reference ``.pt``
@@ -410,6 +412,23 @@ def _remat_contexts(block: nn.Module):
     return contextlib.nullcontext(), _KeepRunningStats(block)
 
 
+class _Head(nn.Conv2d):
+    """A 1x1 head: the convolution in the compute dtype, then its bias added
+    in float32. Fused into a bf16 convolution, the bias would be rounded
+    with the output to bf16, which drops its part below the output's bf16
+    spacing alike at every pixel (a mean logvar offset: ``head_rounding.py``
+    measures it), while Inductor adds it in float32 and keeps the sum; with
+    the add in float32 the eager and the compiled model compute the same
+    head."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight, None) + self.bias.view(1, -1, 1, 1)
+
+
+# The std of a unit normal truncated to [-2, 2] (flax ``variance_scaling``).
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 class StereoUNet(nn.Module):
     def __init__(
         self,
@@ -426,8 +445,9 @@ class StereoUNet(nn.Module):
         fused_block: bool = False,
         skip_impl: str = "concat",
     ) -> None:
-        """``generator`` (a CPU generator) re-draws every conv weight and bias
-        from PyTorch's default distributions, so a seed fixes the weights.
+        """Every parameter is drawn as the JAX package draws a fresh model
+        (``reset_parameters``), from ``generator`` (a CPU generator) if
+        given, so a seed fixes the weights, else from torch's default one.
         ``bn_group``: a ``torch.distributed`` group; with more than one rank
         the BatchNorm statistics are global over it (``MeshBatchNorm2d``).
         ``spatial_group``: with more than one rank the model runs on height
@@ -460,26 +480,34 @@ class StereoUNet(nn.Module):
         self.up1 = nn.ConvTranspose2d(c2, c1, 2, stride=2)
         self.dec1 = block(c1 + c1, c1, skip_impl=skip_impl)
         # Both heads always exist (the reference model defines both).
-        self.disparity_head = nn.Conv2d(c1, out_channels, 1)
-        self.logvar_head = nn.Conv2d(c1, 1, 1)
-        if generator is not None:
-            self.reset_parameters(generator)
+        self.disparity_head = _Head(c1, out_channels, 1)
+        self.logvar_head = _Head(c1, 1, 1)
+        self.reset_parameters(generator)
         self.to(device=resolve_device(device), memory_format=torch.channels_last)
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """PyTorch's default conv init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-        weight and bias (kaiming_uniform with a=sqrt(5)), drawn from
-        ``generator``; BatchNorm back to weight 1, bias 0, fresh stats."""
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The JAX package's initialisers (flax defaults, ``models/unet.py``:
+        ``nn.Conv`` :365, ``ConvKernelParams`` :269, ``Conv1x1Params``
+        :418-424, ``nn.ConvTranspose`` :479, ``BatchNorm`` :55-61). Every
+        conv, transposed-conv and head weight is ``lecun_normal``: a normal
+        truncated to [-2, 2], times 1/sqrt(fan_in)/0.8796..., so its std is
+        1/sqrt(fan_in), with fan_in = input channels * kh * kw (a transposed
+        conv's input channels are ``weight.shape[0]`` in PyTorch's layout).
+        Every bias is 0; BatchNorm weight 1, bias 0, fresh running
+        statistics. Drawn from ``generator`` (torch's default generator
+        without one) on the CPU tensors of ``__init__``, so a seed gives one
+        model on every device; the distribution is the JAX package's, the
+        stream is not."""
         for module in self.modules():
             if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
                 weight = module.weight
-                fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
-                bound = 1.0 / math.sqrt(fan_in)
-                for p in (weight, module.bias):
-                    if p is not None:
-                        draw = torch.rand(p.shape, generator=generator)
-                        p.copy_(draw * (2 * bound) - bound)
+                in_channels = weight.shape[0 if module.transposed else 1]
+                fan_in = in_channels * weight.shape[2] * weight.shape[3]
+                nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                weight.mul_(1.0 / math.sqrt(fan_in) / _TRUNCATED_NORMAL_STD)
+                if module.bias is not None:
+                    module.bias.zero_()
             elif isinstance(module, nn.BatchNorm2d):
                 module.reset_parameters()
 

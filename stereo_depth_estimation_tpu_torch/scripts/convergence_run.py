@@ -15,7 +15,9 @@ disparity). It writes the per-epoch train/val metric trajectory
 power limit and the pairs per second) and the preview montages of the first
 and last epochs (``card_preview{tag}_{first,last}_epoch.png``) to
 ``--docs-dir``, by default ``docs/convergence_torch/``. It refuses
-``docs/convergence/``, whose files are the JAX package's.
+``docs/convergence/``, whose files are the JAX package's. ``--seed``
+(default 42) is the trainer's; the artifact's ``config`` records it and the
+initialiser (the JAX package's, or the ``--init-checkpoint`` it loaded).
 
 An interrupted run carries on with ``--resume-from <workdir>/outputs/<run>/
 checkpoints/last.pt``: the tracking directory is kept and the artifact merges
@@ -47,6 +49,9 @@ DOCS = REPO / "docs" / "convergence_torch"
 JAX_DOCS = REPO / "docs" / "convergence"  # the JAX package's artifacts
 
 METRIC_KEYS = ("train_loss", "train_mae", "val_loss", "val_mae", "val_rmse")
+# What a fresh model is drawn from (``StereoUNet.reset_parameters``).
+INITIALISER = ("the JAX package's: truncated LeCun-normal kernels, zero biases, "
+               "BatchNorm 1/0")
 
 
 def _log(msg: str) -> None:
@@ -139,7 +144,7 @@ def run_card(args: argparse.Namespace) -> dict:
         epochs=args.epochs,
         batch_size=args.batch_size,
         lr=1e-3, weight_decay=1e-4,
-        val_fraction=0.1, seed=42,
+        val_fraction=0.1, seed=args.seed,
         device=args.device,
         augment=True,
         compute_dtype="bfloat16",
@@ -179,6 +184,8 @@ def run_card(args: argparse.Namespace) -> dict:
             "lr_schedule": args.lr_schedule,
             "lr_warmup_steps": args.lr_warmup_steps,
             "seed": cfg.seed,
+            "initialiser": f"--init-checkpoint {args.init_checkpoint}" if args.init_checkpoint
+            else INITIALISER,
             "val_fraction": cfg.val_fraction,
             "dataset": "stereo_depth_estimation_tpu_torch/scripts/make_synth_dataset.py "
                        "(seed 0)",
@@ -262,6 +269,9 @@ def build_parser() -> argparse.ArgumentParser:
              "the artifact merges epoch records across the interrupted and "
              "resumed runs.",
     )
+    card.add_argument("--seed", type=int, default=42,
+                      help="The trainer's seed: the fresh weights, the train/val "
+                           "split, the augmentation and the shuffle.")
     card.add_argument("--lr-schedule", type=str, default="constant",
                       choices=("constant", "cosine"), dest="lr_schedule")
     card.add_argument("--lr-warmup-steps", type=int, default=0,

@@ -166,6 +166,9 @@ def test_card_artifact_has_the_jax_artifacts_keys(card_run) -> None:
     assert jax_artifact["config"].keys() <= artifact["config"].keys()
     assert artifact["series"].keys() == jax_artifact["series"].keys()
     assert artifact["device"] == {"name": "cpu", "power_limit": None, "count": 1}
+    assert artifact["config"]["seed"] == 42
+    assert artifact["config"]["initialiser"] == convergence_run.INITIALISER
+    assert artifact["config"]["init_checkpoint"] is None
     assert artifact["series"]["epoch"] == [1, 2]
     assert all(np.isfinite(v) for key in convergence_run.METRIC_KEYS
                for v in artifact["series"][key])
@@ -203,6 +206,20 @@ def test_card_resume_merges_the_epochs_and_keeps_the_first_preview(tmp_path, car
     # (weights, AdamW, the random stream) carries over whole.
     whole = json.loads((root / "docs" / "card_metrics.json").read_text())["series"]
     assert resumed["series"] == whole
+
+
+@pytest.mark.parametrize("extra,seed", [((), 42), (("--seed", "43"), 43)])
+def test_card_seed_reaches_the_trainer(tmp_path, monkeypatch, extra, seed) -> None:
+    seen = []
+
+    def fake_train(cfg):
+        seen.append(cfg)
+        raise StopIteration  # the run itself is the card_run fixture's
+
+    monkeypatch.setattr(convergence_run, "train", fake_train)
+    with pytest.raises(StopIteration):
+        _card(tmp_path / "work", tmp_path / "docs", "--epochs", "1", *extra)
+    assert [cfg.seed for cfg in seen] == [seed]
 
 
 def test_card_refuses_the_jax_packages_docs(tmp_path) -> None:

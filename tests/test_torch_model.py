@@ -197,7 +197,9 @@ def test_seeded_init_is_reproducible_and_channels_last() -> None:
         assert torch.equal(va, vb), ka
     w = a.enc2.block[0].weight
     assert w.is_contiguous(memory_format=torch.channels_last)
-    bound = 1.0 / np.sqrt(w.shape[1] * 9)
+    # The JAX package's lecun_normal: truncated at 2 / 0.8796 standard
+    # deviations of 1/sqrt(fan_in) (tests/test_torch_init.py holds the rest).
+    bound = 2.2737 / np.sqrt(w.shape[1] * 9)
     assert float(w.abs().max()) <= bound
 
 

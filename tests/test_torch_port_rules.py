@@ -18,7 +18,7 @@ from stereo_depth_estimation_tpu_torch.ops import augment_cuda, batchnorm
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_depth_estimation_tpu_torch"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "stereo_depth_estimation_tpu"}
-SCRIPTS = ["chip_smoke", "augment_timing", "rank_drift", "compile_fault"]
+SCRIPTS = ["chip_smoke", "augment_timing", "rank_drift", "compile_fault", "head_rounding"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / f"{name}.py" for name in SCRIPTS]
 
 
