@@ -5,6 +5,8 @@ mode at a tiny size (its artifact, its resume, its refusals)."""
 
 import importlib.util
 import json
+import os
+import subprocess
 from pathlib import Path
 
 import jax
@@ -237,3 +239,60 @@ def test_card_without_device_flag_needs_cuda(tmp_path) -> None:
                               "--workdir", str(tmp_path / "work"),
                               "--docs-dir", str(tmp_path / "docs")])
     assert not (tmp_path / "work").exists()
+
+
+# --- run_jaxinit.sh: the seed of each run and the pretrain each finetune takes
+
+# Stands in for ``python``: logs its arguments, and for a harness run with a
+# --tag makes the run directory the script then notes as the pretrain's.
+_PYTHON_STUB = """#!/usr/bin/env bash
+echo "$*" >> "$STUB_LOG"
+args=("$@")
+for i in "${!args[@]}"; do
+    if [ "${args[$i]}" = --tag ]; then
+        mkdir -p "$STUB_WORK/outputs/run${args[$((i + 1))]}"
+        sleep 0.02
+    fi
+done
+"""
+
+
+def test_run_jaxinit_seeds_each_run_and_keys_each_finetune_to_its_pretrain(tmp_path) -> None:
+    bin_dir, work, log = tmp_path / "bin", tmp_path / "work", tmp_path / "calls.log"
+    bin_dir.mkdir()
+    (bin_dir / "python").write_text(_PYTHON_STUB)
+    (bin_dir / "python").chmod(0o755)
+    tags = ["_jaxinit_fast_s43", "_jaxinit_fast_s44", "_jaxinit_fast",
+            "_jaxinit_prog_naive_s43", "_jaxinit_prog_rescaled_s44", "_jaxinit_prog_naive",
+            "_jaxinit_mid", "_jaxinit_cosine"]
+    env = {**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ['PATH']}",
+           "STUB_LOG": str(log), "STUB_WORK": str(work)}
+    subprocess.run(["bash", str(ROOT / "docs" / "convergence_torch" / "run_jaxinit.sh"),
+                    str(work), str(tmp_path / "docs"), *tags],
+                   env=env, cwd=ROOT, check=True, timeout=60)
+    calls = [line.split() for line in log.read_text().splitlines()]
+
+    def flag(call, name):
+        return call[call.index(name) + 1] if name in call else None
+
+    harness = {flag(c, "--tag"): c for c in calls if "card" in c}
+    assert list(harness) == tags
+    for tag, seed in (("_jaxinit_fast_s43", "43"), ("_jaxinit_fast_s44", "44"),
+                      ("_jaxinit_fast", "42"), ("_jaxinit_prog_naive_s43", "43"),
+                      ("_jaxinit_prog_rescaled_s44", "44"), ("_jaxinit_prog_naive", "42")):
+        assert flag(harness[tag], "--seed") == seed, tag
+    for tag in ("_jaxinit_mid", "_jaxinit_cosine"):
+        assert flag(harness[tag], "--seed") is None  # the harness's default, 42
+    assert flag(harness["_jaxinit_mid"], "--height") == "128"
+    assert flag(harness["_jaxinit_cosine"], "--lr-schedule") == "cosine"
+
+    def best(pretrain):
+        return f"{work}/outputs/run{pretrain}/checkpoints/best.pt"
+
+    assert flag(harness["_jaxinit_prog_naive_s43"], "--init-checkpoint") == best(
+        "_jaxinit_fast_s43")
+    assert flag(harness["_jaxinit_prog_naive"], "--init-checkpoint") == best("_jaxinit_fast")
+    (rescale,) = [c for c in calls if "rescale_transfer" in c[1]]
+    assert flag(rescale, "--checkpoint") == best("_jaxinit_fast_s44")
+    assert flag(harness["_jaxinit_prog_rescaled_s44"], "--init-checkpoint") == (
+        f"{flag(rescale, '--out')}/rescaled.pt")

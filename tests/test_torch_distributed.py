@@ -61,7 +61,7 @@ CONSECUTIVE_STEPS = 3
 # One child of a two-rank farm: joins the gloo group, runs every scenario of
 # SCENARIOS on its stripe and saves what it saw as rank<r>.pt.
 _STEP_CHILD = textwrap.dedent("""
-    import sys
+    import os, sys
     rank, root, repo = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     sys.path.insert(0, repo)
     import numpy as np
@@ -146,7 +146,11 @@ _STEP_CHILD = textwrap.dedent("""
                  "bias_grad": bn.bias.grad, "running_mean": bn.running_mean,
                  "running_var": bn.running_var, "tracked": int(bn.num_batches_tracked)}
     torch.save(out, f"{root}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
     print("RESULT ok", flush=True)
+    # Leave without the interpreter's teardown, where gloo's threads can
+    # abort a finished child ("terminate called without an active exception").
+    os._exit(0)
 """)
 
 
@@ -569,7 +573,7 @@ def test_trainer_multihost_from_the_environment_runs_one_rank_a_process(
 # ---------------------------------------------------------------------------
 
 _TRAIN_CHILD = textwrap.dedent("""
-    import json, sys
+    import json, os, sys
     pid, root, repo, rendezvous = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
     extra = json.loads(sys.argv[5])
     sys.path.insert(0, repo)
@@ -588,6 +592,9 @@ _TRAIN_CHILD = textwrap.dedent("""
     ])
     summary.pop("state")
     print("RESULT " + json.dumps(summary), flush=True)
+    # Leave without the interpreter's teardown, where gloo's threads can
+    # abort a finished child ("terminate called without an active exception").
+    os._exit(0)
 """)
 
 

@@ -94,7 +94,7 @@ HALO_CASES = [
 ]
 
 _HALO_CHILD = textwrap.dedent("""
-    import json, sys
+    import json, os, sys
     rank, root, repo = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     cases = json.loads(sys.argv[4])
     sys.path.insert(0, repo)
@@ -127,6 +127,9 @@ _HALO_CHILD = textwrap.dedent("""
     torch.save(out, f"{root}/halo{rank}.pt")
     dist.destroy_process_group()
     print("RESULT ok", flush=True)
+    # Leave without the interpreter's teardown, where gloo's threads can
+    # abort a finished child ("terminate called without an active exception").
+    os._exit(0)
 """)
 
 
@@ -214,7 +217,7 @@ STEP_CASES = {
 # saw as rank<r>.pt. With argv[5] == "full" it also runs the predict, eval,
 # planted-fault and compiled cases of the 1 x 2 mesh.
 _STEP_CHILD = textwrap.dedent("""
-    import json, sys
+    import json, os, sys
     rank, root, repo, world, extra = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
                                       int(sys.argv[4]), sys.argv[5])
     sys.path.insert(0, repo)
@@ -285,7 +288,11 @@ _STEP_CHILD = textwrap.dedent("""
         out["compiled"] = step(name, None, compile=P.CompileOptions(backend="aot_eager"))
         out["compiled"]["graphs"] = counters["stats"]["unique_graphs"] - graphs
     torch.save(out, f"{root}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
     print("RESULT ok", flush=True)
+    # Leave without the interpreter's teardown, where gloo's threads can
+    # abort a finished child ("terminate called without an active exception").
+    os._exit(0)
 """)
 
 
@@ -625,7 +632,7 @@ def trainer_root(tmp_path_factory) -> Path:
 
 
 _TRAIN_CHILD = textwrap.dedent("""
-    import json, sys
+    import json, os, sys
     pid, root, repo = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     sys.path.insert(0, repo)
     import torch
@@ -638,6 +645,9 @@ _TRAIN_CHILD = textwrap.dedent("""
         "--num-processes", "2", "--process-id", str(pid)])
     summary.pop("state")
     print("RESULT " + json.dumps(summary), flush=True)
+    # Leave without the interpreter's teardown, where gloo's threads can
+    # abort a finished child ("terminate called without an active exception").
+    os._exit(0)
 """)
 
 
