@@ -56,6 +56,7 @@ from ..ops.remap import Rectifier, remap_bilinear
 from ..ops.resize import resample_matrices, resize_bilinear_with
 from ..parallel.aot_cache import CompileCache, cache_digest, resolve_aot_dir
 from ..parallel.train_step import CompileOptions, compile_model, compile_options_from
+from ..spans import span
 from ..training.checkpoint import (
     checkpoint_mtime_ns,
     load_model_variables,
@@ -146,6 +147,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def _bgr_to_rgb(frame_bgr: np.ndarray) -> np.ndarray:
+    with span("live.upload.flip"):
+        return np.ascontiguousarray(frame_bgr[..., ::-1])
+
+
 class LiveDepthEngine:
     """A frame's device work: upload, scale, rectify, resize, StereoUNet.
 
@@ -156,7 +162,13 @@ class LiveDepthEngine:
     matrices and the rectification maps are built outside it and passed in.
     With ``compile_cache`` (a directory) the program's compile artifacts are
     loaded from, and saved to, a blob there keyed by the frame setting; its
-    report is ``self.compile_cache.reports``."""
+    report is ``self.compile_cache.reports``.
+
+    Under a ``torch.profiler`` capture each stage is a span (``spans.py``):
+    ``live.frame`` around ``process``, ``live.upload`` (inside it one
+    ``live.upload.flip`` a view, the host's channel flip),
+    ``live.preprocess``, ``live.forward``, ``live.program`` and
+    ``live.download``."""
 
     def __init__(
         self,
@@ -208,11 +220,12 @@ class LiveDepthEngine:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """BGR uint8 frames -> RGB uint8 (H, W, 3) tensors on the device; the
         channel flip is made on the host (``torch.from_numpy`` takes no
-        negative strides)."""
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(frame[..., ::-1])).to(self.device)
-            for frame in (frame_l_bgr, frame_r_bgr)
-        )
+        negative strides), one view at a time."""
+        with span("live.upload"):
+            return tuple(
+                torch.from_numpy(_bgr_to_rgb(frame)).to(self.device)
+                for frame in (frame_l_bgr, frame_r_bgr)
+            )
 
     def _inputs(self, left_u8: torch.Tensor) -> tuple:
         """The rectification maps (or None) and the resize matrices (or None)
@@ -247,7 +260,8 @@ class LiveDepthEngine:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """uint8 RGB at capture size -> float32 RGB in [0, 1] at model size:
         scaled, rectified at capture size, then resized."""
-        return self._preprocess(left_u8, right_u8, *self._inputs(left_u8))
+        with span("live.preprocess"):
+            return self._preprocess(left_u8, right_u8, *self._inputs(left_u8))
 
     @torch.inference_mode()
     def forward(
@@ -256,40 +270,47 @@ class LiveDepthEngine:
         """Model-size views -> (disparity HW, logvar HW, the views as uint8),
         on the device. The views are truncated to uint8 as the display path
         truncates them: they exist only for the display."""
-        return self._forward(left, right)
+        with span("live.forward"):
+            return self._forward(left, right)
 
     @torch.inference_mode()
     def run_compiled(self, left_u8: torch.Tensor, right_u8: torch.Tensor):
         """``preprocess`` and ``forward`` as the one compiled program. Under
         CUDA graphs its outputs are overwritten by the next call: a caller
         keeps them only by copying them first (``download`` does)."""
-        first = self.compile_cache_dir is not None and self.compile_cache is None
-        if first:  # the blob's key holds the capture size, known from here
-            self.compile_cache = CompileCache(self.compile_cache_dir, cache_digest({
-                "cli": "live", "compile_mode": self.compile.mode,
-                "compile_backend": self.compile.backend, "base_channels": self.base_channels,
-                "model_size": tuple(self.model_size), "capture": tuple(left_u8.shape),
-                "rectify": self.rectifier is not None,
-            }, self.device), verbose=True)
-            self.compile_cache.load()
-            self._program = self.compile_cache.wrap(self._program, "live frame")
-        out = self._program(left_u8, right_u8, *self._inputs(left_u8))
-        if first:
-            self.compile_cache.finish()
-        return out
+        with span("live.program"):
+            first = self.compile_cache_dir is not None and self.compile_cache is None
+            if first:  # the blob's key holds the capture size, known from here
+                self.compile_cache = CompileCache(self.compile_cache_dir, cache_digest({
+                    "cli": "live", "compile_mode": self.compile.mode,
+                    "compile_backend": self.compile.backend,
+                    "base_channels": self.base_channels,
+                    "model_size": tuple(self.model_size), "capture": tuple(left_u8.shape),
+                    "rectify": self.rectifier is not None,
+                }, self.device), verbose=True)
+                self.compile_cache.load()
+                self._program = self.compile_cache.wrap(self._program, "live frame")
+            out = self._program(left_u8, right_u8, *self._inputs(left_u8))
+            if first:
+                self.compile_cache.finish()
+            return out
 
     @staticmethod
     def download(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
-        return tuple(t.cpu().numpy() for t in tensors)
+        """The frame's outputs as numpy arrays; the copy waits for the
+        frame's device work."""
+        with span("live.download"):
+            return tuple(t.cpu().numpy() for t in tensors)
 
     def process(
         self, frame_l_bgr: np.ndarray, frame_r_bgr: np.ndarray
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """BGR frames -> (disparity HW, logvar HW, rectified views as uint8 RGB)."""
-        frames = self.upload(frame_l_bgr, frame_r_bgr)
-        if self._program is not None:
-            return self.download(*self.run_compiled(*frames))
-        return self.download(*self.forward(*self.preprocess(*frames)))
+        with span("live.frame"):
+            frames = self.upload(frame_l_bgr, frame_r_bgr)
+            if self._program is not None:
+                return self.download(*self.run_compiled(*frames))
+            return self.download(*self.forward(*self.preprocess(*frames)))
 
 
 class CheckpointWatcher:

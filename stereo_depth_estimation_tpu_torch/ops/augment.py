@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..spans import span
 from .halo import Stripe
 
 _GRAY_WEIGHTS = (0.2989, 0.587, 0.114)  # torchvision rgb_to_grayscale
@@ -319,25 +320,28 @@ def noise_and_clip_stereo(
     distributionally the same as two independent per-view draws. The draw is
     bfloat16 and the arithmetic runs in bfloat16 for bfloat16 inputs (noise
     std ~0.03 dwarfs bf16 rounding), float32 otherwise. On a ``stripe`` the
-    draw is the whole image's, cut to the stripe's rows."""
-    dtype = stereo.dtype if stereo.dtype == torch.bfloat16 else torch.float32
-    img = stereo.to(dtype)
-    if enabled:
-        std6 = torch.cat(
-            [
-                noise_std_left[:, None].expand(-1, 3),
-                noise_std_right[:, None].expand(-1, 3),
-            ],
-            dim=1,
-        ).to(dtype)
-        shape = img.shape if stripe is None else (img.shape[0], stripe.height, *img.shape[2:])
-        noise = torch.randn(
-            shape, generator=generator, device=img.device, dtype=torch.bfloat16
-        )
-        if stripe is not None:
-            noise = noise[:, stripe.start:stripe.start + img.shape[1]]
-        img = img + noise.to(dtype) * std6[:, None, None, :]
-    return img.clamp(0.0, 1.0)
+    draw is the whole image's, cut to the stripe's rows. The span
+    ``train.augment.noise`` marks it."""
+    with span("train.augment.noise"):
+        dtype = stereo.dtype if stereo.dtype == torch.bfloat16 else torch.float32
+        img = stereo.to(dtype)
+        if enabled:
+            std6 = torch.cat(
+                [
+                    noise_std_left[:, None].expand(-1, 3),
+                    noise_std_right[:, None].expand(-1, 3),
+                ],
+                dim=1,
+            ).to(dtype)
+            shape = img.shape if stripe is None else (
+                img.shape[0], stripe.height, *img.shape[2:])
+            noise = torch.randn(
+                shape, generator=generator, device=img.device, dtype=torch.bfloat16
+            )
+            if stripe is not None:
+                noise = noise[:, stripe.start:stripe.start + img.shape[1]]
+            img = img + noise.to(dtype) * std6[:, None, None, :]
+        return img.clamp(0.0, 1.0)
 
 
 def split_views(

@@ -14,6 +14,13 @@ PyTorch updates in place where JAX returns new arrays: a step mutates the
 ``TrainState`` it is given (model weights, BatchNorm running stats, optimizer
 state, step, generator) and returns it with the batch's ``LossStats``.
 
+Under a ``torch.profiler`` capture the step's stages are spans
+(``spans.py``): ``train.step`` around the step, and inside it
+``train.augment`` (with ``train.augment.noise``), ``train.gate.snapshot``,
+``train.forward``, ``train.loss``, ``train.backward``, ``train.optimizer``
+and ``train.gate.select``; a device-resident step's gather is
+``train.gather``, before its ``train.step``.
+
 On a mesh of several ranks (``parallel/mesh.py``) each rank runs this step on
 its stripe of the global batch, with the JAX package's global semantics: the
 model's BatchNorm statistics are global (``MeshBatchNorm2d``); the loss is the
@@ -64,6 +71,7 @@ from ..ops.augment import AugmentConfig, augment_stereo_batch
 from ..ops.augment_cuda import augment_stereo_batch_fused
 from ..ops.halo import Stripe
 from ..ops.loss import LossStats, heteroscedastic_laplace_nll
+from ..spans import span
 from .mesh import Mesh
 
 Batch = dict[str, torch.Tensor]
@@ -317,43 +325,52 @@ def make_train_step(
     stripe = None if augment_config is None else _stripe(mesh, height)
 
     def step(state: TrainState, batch: Batch) -> tuple[TrainState, LossStats]:
-        model, optimizer = state.model, state.optimizer
-        inputs = _augmented_inputs(state, batch["input"], augment_config, stripe)
-        target, mask = _targets_and_mask(batch)
+        with span("train.step"):
+            model, optimizer = state.model, state.optimizer
+            with span("train.augment"):
+                inputs = _augmented_inputs(
+                    state, batch["input"], augment_config, stripe)
+            target, mask = _targets_and_mask(batch)
 
-        # Zero-valid-batch no-op, decided on the device without a host sync:
-        # snapshot what the step changes (BatchNorm running stats change
-        # inside forward, so before it), run the step, then select old or new
-        # per tensor on valid_count > 0. It costs one copy and one select of
-        # the weights and the two Adam moments (~93 MB each way at base 32),
-        # where reading valid_count on the host would stall the step.
-        gated = _gated_tensors(state)
-        snapshot = [t.clone() for t in gated]
+            # Zero-valid-batch no-op, decided on the device without a host sync:
+            # snapshot what the step changes (BatchNorm running stats change
+            # inside forward, so before it), run the step, then select old or new
+            # per tensor on valid_count > 0. It costs one copy and one select of
+            # the weights and the two Adam moments (~93 MB each way at base 32),
+            # where reading valid_count on the host would stall the step.
+            with span("train.gate.snapshot"):
+                gated = _gated_tensors(state)
+                snapshot = [t.clone() for t in gated]
 
-        model.train()
-        disp, logvar = _forward_module(state, train=True)(inputs, return_uncertainty=True)
-        loss, stats = heteroscedastic_laplace_nll(
-            disp[..., 0], logvar[..., 0], target, mask
-        )
-        if distributed:
-            # The global masked mean: the ranks' valid counts differ (invalid
-            # pixels, padded rows), and DistributedDataParallel averages the
-            # ranks' gradients, so each rank's sum is scaled by
-            # world / global count.
-            local_nll = stats.nll_sum
-            stats = global_stats(stats, mesh)
-            loss = local_nll * (mesh.world_size / stats.valid_count.clamp(min=1.0))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        _set_learning_rate(optimizer)
-        optimizer.step()
+            model.train()
+            with span("train.forward"):
+                disp, logvar = _forward_module(state, train=True)(
+                    inputs, return_uncertainty=True)
+            with span("train.loss"):
+                loss, stats = heteroscedastic_laplace_nll(
+                    disp[..., 0], logvar[..., 0], target, mask
+                )
+            if distributed:
+                # The global masked mean: the ranks' valid counts differ (invalid
+                # pixels, padded rows), and DistributedDataParallel averages the
+                # ranks' gradients, so each rank's sum is scaled by
+                # world / global count.
+                local_nll = stats.nll_sum
+                stats = global_stats(stats, mesh)
+                loss = local_nll * (mesh.world_size / stats.valid_count.clamp(min=1.0))
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                _set_learning_rate(optimizer)
+                optimizer.step()
 
-        has_valid = stats.valid_count > 0
-        with torch.no_grad():
-            for live, old in zip(gated, snapshot):
-                live.copy_(torch.where(has_valid, live, old))
-        state.step += 1
-        return state, LossStats(*(s.detach() for s in stats))
+            with span("train.gate.select"), torch.no_grad():
+                has_valid = stats.valid_count > 0
+                for live, old in zip(gated, snapshot):
+                    live.copy_(torch.where(has_valid, live, old))
+            state.step += 1
+            return state, LossStats(*(s.detach() for s in stats))
 
     return step
 
@@ -389,19 +406,20 @@ class DeviceDataTrainStep:
         self._perm: torch.Tensor | None = None
 
     def gather(self, state: TrainState) -> Batch:
-        pos = self._calls % self.steps_per_epoch
-        if pos == 0:
-            self._perm = torch.randperm(
-                self.images_u8.shape[0],
-                generator=state.generator,
-                device=self.images_u8.device,
-            )
-        self._calls += 1
-        idx = self._perm[pos * self.batch_size : (pos + 1) * self.batch_size]
-        return {
-            "input": self.images_u8.index_select(0, idx),
-            "target": self.targets.index_select(0, idx),
-        }
+        with span("train.gather"):
+            pos = self._calls % self.steps_per_epoch
+            if pos == 0:
+                self._perm = torch.randperm(
+                    self.images_u8.shape[0],
+                    generator=state.generator,
+                    device=self.images_u8.device,
+                )
+            self._calls += 1
+            idx = self._perm[pos * self.batch_size : (pos + 1) * self.batch_size]
+            return {
+                "input": self.images_u8.index_select(0, idx),
+                "target": self.targets.index_select(0, idx),
+            }
 
     def __call__(self, state: TrainState) -> tuple[TrainState, LossStats]:
         return self.step_fn(state, self.gather(state))

@@ -203,7 +203,8 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
     add("--preview-samples", type=int, default=defaults.preview_samples,
         help="Fixed preview sample count logged each epoch.")
     add("--profile-dir", type=str, default=None,
-        help="Write a torch.profiler trace of early training batches here.")
+        help="Write a torch.profiler trace of early training batches here; its "
+             "trace.json carries the train step's train.* spans.")
     add("--profile-steps", type=int, default=defaults.profile_steps,
         help="Training batches to capture when --profile-dir is set.")
     add("--multihost", action="store_true",

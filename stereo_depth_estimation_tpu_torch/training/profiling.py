@@ -4,7 +4,9 @@ Counterpart of ``stereo_depth_estimation_tpu/training/profiling.py`` with
 ``torch.profiler`` in place of ``jax.profiler``: ``--profile-dir`` arms a
 capture of ``--profile-steps`` training batches after the first (which
 builds the kernels and picks cuDNN algorithms), written as a Chrome trace
-(``trace.json``, readable by Perfetto or chrome://tracing).
+(``trace.json``, readable by Perfetto or chrome://tracing). The trace
+carries the train step's ``train.*`` spans (``spans.py``) as rows on the
+clock of its device rows.
 """
 
 from __future__ import annotations
