@@ -9,8 +9,10 @@ It builds the CUDA kernels from ``stereo_depth_estimation_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each kernel against its
 plain PyTorch version on the card (BN1-BN4, the BatchNorm + ReLU kernels of
 ``csrc/batchnorm.cu``, at the main path's 18 BatchNorm shapes in bf16, at
-batch 16 in float32 and with bf16 statistics, at C = 4 and 36 and ragged
-row counts, each launched twice and bitwise repeatable), holds the tensor
+batch 16 in float32 and with bf16 statistics, at C = 4 and 36 and ragged row
+counts, each launched twice and bitwise repeatable; BN1 and BN3 also with
+the per-channel epilogue in their second pass, against the plain epilogue on
+the kernel's own sums and the epilogue launched alone), holds the tensor
 disparity codec against the numpy one, holds a fresh model built as the
 trainer builds it (base 32, bf16, seed 42, on the card) to the JAX package's
 initialisers and, bitwise, to the one built on the CPU from the same seed
@@ -80,9 +82,10 @@ initialisers and, bitwise, to the one built on the CPU from the same seed
   step against AdamW's), a planted fault (a hybrid backward that swaps its
   two input gradients) that the check must catch, ``remat`` also against
   the default model in float32 with the BatchNorm running statistics after
-  the step, then timed steps with their launches and peak memory
-  (``fused_block`` and bf16 statistics run their 18 BatchNorms a step on
-  BN1-BN4, as do the two-rank and spatial phases' models);
+  the step, then timed steps with their launches and peak memory (every
+  training model runs its 18 BatchNorms a step on BN1-BN4; the two-rank and
+  spatial phases' models also launch the epilogue alone, "BNE", after each
+  all-reduce);
 - the serving forwards compiled (the serving CLIs' ``--compile``):
   evaluate over a ragged tail and predict, each against its eager run, the
   steady compiled ``predict_fn`` and eval step beside eager, the live engine
@@ -94,7 +97,7 @@ initialisers and, bitwise, to the one built on the CPU from the same seed
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
 and a PyTorch library call where one computes the same function (BN1-BN4
-also beside cuDNN's BatchNorm + ReLU, forward and backward), times the
+also beside PyTorch's BatchNorm + ReLU, forward and backward), times the
 augmentation layer part by part (``augment_timing.py``), and prints one JSON
 line with the kernel list and, last, the result line. Any failed
 check raises, so the exit code is non-zero and no result line is printed.
@@ -308,22 +311,23 @@ LIVE_MODES = ("default", "reduce-overhead")
 # memory. A hybrid backward that swaps its two input gradients must miss.
 KNOB_STEPS = 3
 # name -> (the model's keyword arguments, the LossStats limit, the gradient
-# limit). Each limit is set a few times above what an H100 read (PERF.md
-# section 6: LossStats 1.9e-6, 5.7e-6, 0, 2.8e-4, 0 and 2.4e-6-4.6e-6;
-# gradients 4.6%, 3.1%, 0.28%, 46.5%, 0 and 1.8-1.9%), or at float noise
-# where it read 0. The comparisons run on cuDNN's deterministic algorithms,
-# so that a reading repeats; the default model against a copy of itself
-# reads 0 there. remat repeats the default's arithmetic, yet in bf16 its
-# weight gradients land on the other side of a bf16 rounding in places
-# (cuDNN sums them in another order there): an H100 read 0 in some calls
-# and 0.195-0.205% of enc1/enc2's norm in others, so its limit is the
-# hybrid's. Its arithmetic is held in float32 instead (REMAT_F32_*).
-# In bf16 the knobs round at other places than cuDNN's BatchNorm (a ReLU
-# input near 0 then takes the other side of the kink); bf16 statistics
-# also compute the BatchNorm backward's cancelling terms from bf16-rounded
-# moments, which moves the first layer's gradient by half its norm: that is
-# the knob's arithmetic, as in the JAX model. The planted hybrid fault read
-# 1.53 of a leaf's norm.
+# limit). Each limit is set a few times above what an H100 read while the
+# default model ran PyTorch's BatchNorm (LossStats 1.9e-6, 5.7e-6, 0, 2.8e-4,
+# 0 and 2.4e-6-4.6e-6; gradients 4.6%, 3.1%, 0.28%, 46.5%, 0 and 1.8-1.9%), or
+# at float noise where it read 0; with every model on BN1-BN4 an H100 read 0,
+# 4.1e-6, 0, 3.4e-5, 0 and 8.3e-7, and 0, 3.1%, 0.27%, 10.7%, 0.22% and 2.3%
+# (PERF.md section 6). The comparisons run on cuDNN's deterministic
+# algorithms, so that a reading repeats; the default model against a copy of
+# itself reads 0 there. remat repeats the default's arithmetic, yet in bf16
+# its weight gradients land on the other side of a bf16 rounding in places
+# (cuDNN sums them in another order there): an H100 read 0 in some calls and
+# 0.195-0.205% of enc1/enc2's norm in others, so its limit is the hybrid's.
+# Its arithmetic is held in float32 instead (REMAT_F32_*). In bf16 the knobs
+# round at other places than the default model (a ReLU input near 0 then takes
+# the other side of the kink); bf16 statistics also compute the BatchNorm
+# backward's cancelling terms from bf16-rounded moments, which moves the first
+# layer's gradient by half its norm: that is the knob's arithmetic, as in the
+# JAX model. The planted hybrid fault read 1.53 of a leaf's norm.
 KNOBS = {
     "fused_block": ({"fused_block": True}, 2e-5, 0.1),
     "skip_impl split": ({"skip_impl": "split"}, 2e-5, 0.1),
@@ -371,6 +375,10 @@ BN_RAGGED = [(1_000_003, 4), (77_777, 36), (4_099, 64), (33, 512)]
 # BN4 within one ulp of their output dtype (the same correctly rounded
 # float32 operations as the plain version; 0 is expected).
 BN_SUM_RTOL = 1e-5
+# The epilogue (the statistics, the running update, BN4's coefficients) on
+# the same sums: each step one correctly rounded float32 operation in the
+# kernel and in the plain version's PyTorch ops, so 0 ulps is expected.
+BN_EPILOGUE_ULPS = 1.0
 # (name, function, what the kernel stands for in the JAX package: XLA fuses
 # that work there, so the line is the JAX source's, not a TPU kernel's).
 BN_KERNELS = (
@@ -757,62 +765,90 @@ def bn_inputs(gen, m: int, c: int, dtype: torch.dtype) -> dict[str, torch.Tensor
     return {"x": x, "dy": dy, "gamma": gamma, "beta": beta}
 
 
-def bn_coefficients(stats: torch.Tensor, gamma: torch.Tensor, c: int) -> dict:
-    """mean, var, n and scale from BN1's layout, as ``models/unet.py`` forms them."""
-    mean, var, n = unet._moments(stats, c)
-    return {"mean": mean, "var": var, "n": n, "scale": unet._scale(var, gamma, BN_EPS)}
+def bn_running(gen, c: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Running buffers part way through training: mean, var and count."""
+    return (torch.randn((c,), device="cuda", generator=gen),
+            0.5 + torch.rand((c,), device="cuda", generator=gen),
+            torch.full((), 7, dtype=torch.long, device="cuda"))
+
+
+def copies(tensors) -> tuple[torch.Tensor, ...]:
+    return tuple(t.clone() for t in tensors)
 
 
 def bn_case(gen, m: int, c: int, dtype: torch.dtype, relu: bool, bf16_stats: bool) -> dict:
-    """BN1-BN4 against their plain versions on one case, and each kernel
-    launched twice, bitwise equal. Returns each kernel's gap, its unit
-    ("rel": BN1, BN3 relative to the sum of the terms' magnitudes; "ulps":
-    BN1's bf16-statistics means in bf16 ulps, BN2 and BN4 in ulps of the
-    output dtype) and its largest absolute error."""
+    """BN1-BN4 against their plain versions on one case, each kernel
+    launched twice, bitwise equal. BN1 and BN3 also with the epilogue in
+    their second pass, as ``bn_relu_forward`` and ``bn_relu_backward`` run
+    them (the statistics with the running update; dbeta, dgamma, t1 and
+    t2): within BN_EPILOGUE_ULPS of the plain epilogue on the kernel's own
+    sums, and bitwise equal to the epilogue alone (the group path's launch)
+    on those sums; their BN2 and BN4 bitwise the kernels' launched alone on
+    the same statistics and coefficients. Returns each kernel's gap, its unit ("rel":
+    BN1, BN3 relative to the sum of the terms' magnitudes; "ulps": BN1's
+    bf16-statistics means in bf16 ulps, the epilogues, BN2 and BN4 in ulps)
+    and its largest absolute error."""
     t = bn_inputs(gen, m, c, dtype)
     x, dy, gamma, beta = t["x"], t["dy"], t["gamma"], t["beta"]
     what = f"({m}, {c}) {str(dtype).split('.')[-1]} relu {relu} bf16 statistics {bf16_stats}"
     out = {}
 
-    got, want = batchnorm.bn_stats_cuda(x, bf16_stats), batchnorm.bn_stats_plain(x, bf16_stats)
-    check(torch.equal(got, batchnorm.bn_stats_cuda(x, bf16_stats)), f"BN1 repeat differs {what}")
-    check(float(got[2 * c]) == m, f"BN1 count {float(got[2 * c])}, expected {m} {what}")
+    sums, want = batchnorm.bn_stats_cuda(x, bf16_stats), batchnorm.bn_stats_plain(x, bf16_stats)
+    check(torch.equal(sums, batchnorm.bn_stats_cuda(x, bf16_stats)), f"BN1 repeat differs {what}")
+    check(float(sums[2 * c]) == m, f"BN1 count {float(sums[2 * c])}, expected {m} {what}")
     if bf16_stats:
-        gap = ulp_gap((got[:2 * c] / m).bfloat16(), (want[:2 * c] / m).bfloat16())
+        gap = ulp_gap((sums[:2 * c] / m).bfloat16(), (want[:2 * c] / m).bfloat16())
     else:
         xf = x.float()
-        gap = bn_relative_gap(got[:2 * c], want[:2 * c],
+        gap = bn_relative_gap(sums[:2 * c], want[:2 * c],
                               torch.cat([xf.abs().sum(0), (xf * xf).sum(0)]))
         del xf
-    out["BN1"] = (gap, "ulps" if bf16_stats else "rel", float((got - want).abs().max()))
-    k = bn_coefficients(want, gamma, c)  # both versions take the same inputs from here
-    mean, scale, n = k["mean"], k["scale"], k["n"]
+    out["BN1"] = (gap, "ulps" if bf16_stats else "rel", float((sums - want).abs().max()))
 
-    got = batchnorm.bn_relu_fwd_cuda(x, mean, scale, beta, relu)
-    want = batchnorm.bn_relu_fwd_plain(x, mean, scale, beta, relu)
-    check(torch.equal(got, batchnorm.bn_relu_fwd_cuda(x, mean, scale, beta, relu)),
-          f"BN2 repeat differs {what}")
+    running = bn_running(gen, c)
+    folded, plain, alone = copies(running), copies(running), copies(running)
+    y, stats = batchnorm.bn_relu_forward_cuda(x, gamma, beta, *folded, BN_EPS, 0.1, bf16_stats,
+                                              relu)
+    want = batchnorm.bn_moments_plain(sums, gamma, *plain, BN_EPS, 0.1)
+    check(torch.equal(stats, batchnorm.bn_moments_cuda(sums, gamma, *alone, BN_EPS, 0.1))
+          and all(torch.equal(a, b) for a, b in zip(folded, alone)),
+          f"BN1's epilogue folded and alone differ {what}")
+    check(torch.equal(folded[2], plain[2]) and int(folded[2]) == 8,
+          f"num_batches_tracked {int(folded[2])}, expected 8 {what}")
+    out["BN1 epilogue"] = (max(ulp_gap(stats, want), ulp_gap(folded[0], plain[0]),
+                               ulp_gap(folded[1], plain[1])), "ulps",
+                           float((stats - want).abs().max()))
+
+    got = batchnorm.bn_relu_fwd_cuda(x, stats, beta, relu)
+    want = batchnorm.bn_relu_fwd_plain(x, stats, beta, relu)
+    check(torch.equal(got, batchnorm.bn_relu_fwd_cuda(x, stats, beta, relu))
+          and torch.equal(got, y), f"BN2 repeat or bn_relu_forward's BN2 differs {what}")
     out["BN2"] = (ulp_gap(got, want), "ulps", float((got.float() - want.float()).abs().max()))
-    del got, want
+    del got, want, y
 
-    got = batchnorm.bn_relu_bwd_sums_cuda(dy, x, mean, scale, beta, relu)
-    want = batchnorm.bn_relu_bwd_sums_plain(dy, x, mean, scale, beta, relu)
-    check(torch.equal(got, batchnorm.bn_relu_bwd_sums_cuda(dy, x, mean, scale, beta, relu)),
+    sums = batchnorm.bn_relu_bwd_sums_cuda(dy, x, stats, beta, relu)
+    want = batchnorm.bn_relu_bwd_sums_plain(dy, x, stats, beta, relu)
+    check(torch.equal(sums, batchnorm.bn_relu_bwd_sums_cuda(dy, x, stats, beta, relu)),
           f"BN3 repeat differs {what}")
-    dyp = batchnorm._masked(dy, x, mean, scale, beta, relu)
-    terms = torch.cat([dyp.abs().sum(0), (dyp * (x.float() - mean)).abs().sum(0)])
+    dyp = batchnorm._masked(dy, x, stats, beta, relu)
+    terms = torch.cat([dyp.abs().sum(0), (dyp * (x.float() - stats[:c])).abs().sum(0)])
     del dyp
-    out["BN3"] = (bn_relative_gap(got, want, terms), "rel", float((got - want).abs().max()))
-    t1, t2 = unet._dz_coefficients(want, torch.rsqrt(k["var"] + BN_EPS), scale, n)
+    out["BN3"] = (bn_relative_gap(sums, want, terms), "rel", float((sums - want).abs().max()))
 
-    got = batchnorm.bn_relu_bwd_dx_cuda(dy, x, mean, scale, beta, t1, t2, relu)
-    want = batchnorm.bn_relu_bwd_dx_plain(dy, x, mean, scale, beta, t1, t2, relu)
-    check(torch.equal(got, batchnorm.bn_relu_bwd_dx_cuda(dy, x, mean, scale, beta, t1, t2,
-                                                         relu)), f"BN4 repeat differs {what}")
+    dz, coef = batchnorm.bn_relu_backward_cuda(dy, x, stats, beta, BN_EPS, relu)
+    want = batchnorm.bn_bwd_coefficients_plain(sums, sums, stats, BN_EPS)
+    check(torch.equal(coef, batchnorm.bn_bwd_coefficients_cuda(sums, sums, stats, BN_EPS)),
+          f"BN3's epilogue folded and alone differ {what}")
+    out["BN3 epilogue"] = (ulp_gap(coef, want), "ulps", float((coef - want).abs().max()))
+
+    got = batchnorm.bn_relu_bwd_dx_cuda(dy, x, stats, beta, coef, relu)
+    want = batchnorm.bn_relu_bwd_dx_plain(dy, x, stats, beta, coef, relu)
+    check(torch.equal(got, batchnorm.bn_relu_bwd_dx_cuda(dy, x, stats, beta, coef, relu))
+          and torch.equal(got, dz), f"BN4 repeat or bn_relu_backward's BN4 differs {what}")
     out["BN4"] = (ulp_gap(got, want), "ulps", float((got.float() - want.float()).abs().max()))
     torch.cuda.synchronize()
     for name, (gap, unit, _) in out.items():
-        tol = 1.0 if unit == "ulps" else BN_SUM_RTOL
+        tol = (BN_EPILOGUE_ULPS if "epilogue" in name else 1.0) if unit == "ulps" else BN_SUM_RTOL
         check(gap <= tol, f"{name} off its plain version by {gap:.3g} (tol {tol:g}) {what}")
     return out
 
@@ -838,7 +874,7 @@ def phase_bn_checks() -> dict[str, float]:
     main path's bf16 shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
-    before = counts()
+    before = launcher_counts()
     worst: dict[str, float] = {}
     main_err = dict.fromkeys(BN_NAMES, 0.0)
     main = {(n * h * w, c) for n, h, w, c, _ in BN_LEVELS}
@@ -847,7 +883,7 @@ def phase_bn_checks() -> dict[str, float]:
         for name, (gap, unit, err) in out.items():
             key = f"{name} {unit}"
             worst[key] = max(worst.get(key, 0.0), gap)
-            if (m, c) in main and dtype == torch.bfloat16:
+            if (m, c) in main and dtype == torch.bfloat16 and name in main_err:
                 main_err[name] = max(main_err[name], err)
         print(f"bn check: ({m}, {c}) {str(dtype).split('.')[-1]} relu {relu} bf16 statistics "
               f"{bf16_stats}: " + ", ".join(f"{k} {g:.3g} {u}" for k, (g, u, _) in out.items())
@@ -855,7 +891,9 @@ def phase_bn_checks() -> dict[str, float]:
         torch.cuda.empty_cache()
     restore_counts(before)  # check launches are not a path's
     print(f"bn check: every case within its tolerance (sums {BN_SUM_RTOL:g} of the terms' "
-          f"magnitudes, bf16-statistics means and elementwise outputs one ulp); worst "
+          f"magnitudes, bf16-statistics means and elementwise outputs one ulp, the epilogues "
+          f"{BN_EPILOGUE_ULPS:g} ulp on the kernel's own sums and bitwise the epilogue alone); "
+          f"worst "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     return main_err
 
@@ -870,28 +908,30 @@ def bn_bytes(name: str, m: int, c: int, itemsize: int) -> int:
 
 
 def phase_bn_timing() -> dict[str, dict]:
-    """BN1-BN4 at the main path's 18 BatchNorm inputs (bf16, ReLU on),
-    summed over the layers: kernel, plain version, the PyTorch primitive that
-    computes the same function (batch_norm_stats, batch_norm_elemt,
+    """BN1-BN4 at the main path's 18 BatchNorm inputs (bf16, ReLU on), summed
+    over the layers: kernel, plain version, the PyTorch primitive
+    that computes the same function (batch_norm_stats, batch_norm_elemt,
     batch_norm_backward_reduce, batch_norm_backward_elemt, which the port
-    never calls) and the byte bound; and cuDNN's BatchNorm + ReLU, forward
-    (torch.batch_norm in training + relu_) and autograd backward, beside
-    them."""
+    never calls) and the byte bound; the two calls the model makes
+    (``bn_relu_forward``: BN1 with the epilogue in its second pass, then
+    BN2; ``bn_relu_backward``: BN3 with the epilogue, then BN4); and
+    PyTorch's BatchNorm + ReLU, forward (torch.batch_norm in training +
+    relu_) and autograd backward, beside them."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    before = counts()
+    before = launcher_counts()
     sums = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
             for name in BN_NAMES}
     cudnn = {"forward": 0.0, "backward": 0.0}
+    passes = {"forward": 0.0, "backward": 0.0}
     for n_img, h, w, c, layers in BN_LEVELS:
         m = n_img * h * w
         t = bn_inputs(gen, m, c, torch.bfloat16)
         x, dy, gamma, beta = t["x"], t["dy"], t["gamma"], t["beta"]
-        k = bn_coefficients(batchnorm.bn_stats_plain(x, False), gamma, c)
-        mean, scale, n = k["mean"], k["scale"], k["n"]
-        t1, t2 = unet._dz_coefficients(
-            batchnorm.bn_relu_bwd_sums_plain(dy, x, mean, scale, beta, True),
-            torch.rsqrt(k["var"] + BN_EPS), scale, n)
+        running = bn_running(gen, c)
+        stats = batchnorm.bn_relu_forward_plain(x, gamma, beta, *copies(running), BN_EPS, 0.1,
+                                                False, True)[1]
+        coef = batchnorm.bn_relu_backward_plain(dy, x, stats, beta, BN_EPS, True)[1]
         # The (N, C, H, W) channels_last views the library calls take.
         x4, dy4 = (v.view(n_img, h, w, c).permute(0, 3, 1, 2) for v in (x, dy))
         rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
@@ -903,22 +943,27 @@ def phase_bn_timing() -> dict[str, dict]:
             "BN1": (lambda: batchnorm.bn_stats_cuda(x, False),
                     lambda: batchnorm.bn_stats_plain(x, False),
                     lambda: torch.batch_norm_stats(x4, BN_EPS)),
-            "BN2": (lambda: batchnorm.bn_relu_fwd_cuda(x, mean, scale, beta, True),
-                    lambda: batchnorm.bn_relu_fwd_plain(x, mean, scale, beta, True),
+            "BN2": (lambda: batchnorm.bn_relu_fwd_cuda(x, stats, beta, True),
+                    lambda: batchnorm.bn_relu_fwd_plain(x, stats, beta, True),
                     lambda: torch.batch_norm_elemt(x4, gamma, beta, lib_mean, lib_invstd,
                                                    BN_EPS)),
-            "BN3": (lambda: batchnorm.bn_relu_bwd_sums_cuda(dy, x, mean, scale, beta, True),
-                    lambda: batchnorm.bn_relu_bwd_sums_plain(dy, x, mean, scale, beta, True),
+            "BN3": (lambda: batchnorm.bn_relu_bwd_sums_cuda(dy, x, stats, beta, True),
+                    lambda: batchnorm.bn_relu_bwd_sums_plain(dy, x, stats, beta, True),
                     lambda: torch.batch_norm_backward_reduce(dy4, x4, lib_mean, lib_invstd,
                                                              gamma, True, True, True)),
-            "BN4": (lambda: batchnorm.bn_relu_bwd_dx_cuda(dy, x, mean, scale, beta, t1, t2,
-                                                          True),
-                    lambda: batchnorm.bn_relu_bwd_dx_plain(dy, x, mean, scale, beta, t1, t2,
-                                                           True),
+            "BN4": (lambda: batchnorm.bn_relu_bwd_dx_cuda(dy, x, stats, beta, coef, True),
+                    lambda: batchnorm.bn_relu_bwd_dx_plain(dy, x, stats, beta, coef, True),
                     lambda: torch.batch_norm_backward_elemt(dy4, x4, lib_mean, lib_invstd,
                                                             gamma, reduced[0], reduced[1],
                                                             count)),
         }
+        # The model's two calls: BN1 with the epilogue then BN2, BN3 with the
+        # epilogue then BN4.
+        passes["forward"] += layers * time_ms(
+            lambda: batchnorm.bn_relu_forward_cuda(x, gamma, beta, *running, BN_EPS, 0.1, False,
+                                                   True), 20)
+        passes["backward"] += layers * time_ms(
+            lambda: batchnorm.bn_relu_backward_cuda(dy, x, stats, beta, BN_EPS, True), 20)
         line = []
         for name, (kernel, plain, library) in kernels.items():
             ms, plain_ms, lib_ms = time_ms(kernel, 20), time_ms(plain, 3), time_ms(library, 20)
@@ -938,7 +983,7 @@ def phase_bn_timing() -> dict[str, dict]:
         cudnn["forward"] += layers * fwd
         cudnn["backward"] += layers * bwd
         print(f"bn timing: ({m}, {c}) bf16 x{layers}: " + "; ".join(line)
-              + f"; cuDNN BatchNorm + ReLU forward {fwd * 1e3:.1f} us, backward "
+              + f"; PyTorch BatchNorm + ReLU forward {fwd * 1e3:.1f} us, backward "
               f"{bwd * 1e3:.1f} us ({card()})")
         del t, x, dy, x4, dy4, xg, y, kernels
         torch.cuda.empty_cache()
@@ -949,9 +994,12 @@ def phase_bn_timing() -> dict[str, dict]:
               f"ms, byte bound {s['bound_ms']:.3f} ms, {100 * s['bound_ms'] / s['ms']:.1f}% "
               f"of bound")
     total = sum(s["ms"] for s in sums.values())
-    print(f"bn timing: BN1-BN4 {total:.3f} ms a step against cuDNN's BatchNorm + ReLU "
-          f"{cudnn['forward']:.3f} ms forward + {cudnn['backward']:.3f} ms backward = "
-          f"{cudnn['forward'] + cudnn['backward']:.3f} ms ({card()})")
+    print(f"bn timing: BN1-BN4 {total:.3f} ms a step; as the model calls them, BN1 with the "
+          f"epilogue + BN2 {passes['forward']:.3f} ms, BN3 with the epilogue + BN4 "
+          f"{passes['backward']:.3f} ms = {passes['forward'] + passes['backward']:.3f} ms; "
+          f"against PyTorch's BatchNorm + ReLU {cudnn['forward']:.3f} ms forward + "
+          f"{cudnn['backward']:.3f} ms backward = {cudnn['forward'] + cudnn['backward']:.3f} ms "
+          f"({card()})")
     for name in BN_NAMES:
         sums[name]["cudnn_ms"] = cudnn["forward" if name in ("BN1", "BN2") else "backward"]
     return sums
@@ -1023,11 +1071,12 @@ def phase_trainer(tmp: Path) -> Path:
         check(summary["device_resident"] == "pinned",
               f"trainer staged the set as {summary['device_resident']}, not pinned")
         steps = epochs * steps_per_epoch
-        # Per epoch: the gray means, K1 and 4 K3 per train step; 4 K2 per
-        # train step, per validation batch and per preview predict.
+        # Per epoch: the gray means, K1, 4 K3 and BN1-BN4 for each of 18
+        # BatchNorms per train step; 4 K2 per train step, per validation
+        # batch and per preview predict.
         expected = expect_launches(GM=steps, K1=steps,
                                    K2=4 * (steps + epochs * (val_batches + 1)),
-                                   K3=4 * steps)
+                                   K3=4 * steps, **bn_launches(18 * steps))
         got = {k: run_counts[k] for k in expected}
         check(got == expected, f"trainer launches {got}, expected {expected}")
         for epoch in summary["epochs"]:
@@ -1121,11 +1170,12 @@ def harness_run(work: Path, docs: Path, tag: str, epochs: int,
     steps_per_epoch = len(train_samples) // batch  # pinned: whole batches
     steps = epochs * steps_per_epoch
     val_batches = -(-len(val_samples) // batch)
-    # As the trainer phase: per train step the gray means, K1 and 4 K3; 4 K2
-    # per train step, per validation batch and per preview predict.
+    # As the trainer phase: per train step the gray means, K1, 4 K3 and
+    # BN1-BN4 18 times; 4 K2 per train step, per validation batch and per
+    # preview predict.
     expected = expect_launches(GM=steps, K1=steps,
                                K2=4 * (steps + epochs * (val_batches + 1)),
-                               K3=4 * steps)
+                               K3=4 * steps, **bn_launches(18 * steps))
     check(run_counts == expected, f"convergence{tag} launches {run_counts}, "
           f"expected {expected}")
     epoch_s = [e["epoch_seconds"] for e in summary["epochs"]]
@@ -2183,11 +2233,12 @@ def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
         end.record()
         torch.cuda.synchronize()
         run_counts = counts()
-        # fused_block and bf16 statistics run their 18 BatchNorms on BN1-BN4.
-        on_kernels = "fused_block" in kwargs or "bn_stats_dtype" in kwargs
-        expected = expect_launches(GM=KNOB_STEPS, K1=KNOB_STEPS, K2=4 * KNOB_STEPS,
-                                   K3=4 * KNOB_STEPS,
-                                   **bn_launches(18 * KNOB_STEPS * on_kernels))
+        # Every model runs its 18 BatchNorms on BN1-BN4; remat runs each
+        # block's forward again in the backward (BN1, BN2).
+        expected = train_launches(KNOB_STEPS)
+        if "remat" in kwargs:
+            expected.update(BN1=36 * KNOB_STEPS, BN2=36 * KNOB_STEPS)
+        expected = expect_launches(**expected)
         check(run_counts == expected, f"knob {name}: launches {run_counts}, expected {expected}")
         check(math.isfinite(metrics_from_stats(stats)["loss"]), f"knob {name}: loss {stats}")
         results.setdefault(name, {}).update(
@@ -2559,10 +2610,11 @@ def phase_multi_rank(tmp: Path) -> dict[str, list[int]]:
     launches: dict[str, list[int]] = {}
     for r, result in enumerate(results):
         previews = MR_EPOCHS if r == 0 else 0
-        # Two ranks: the 18 BatchNorms of each training step on BN1-BN4.
+        # Two ranks: the 18 BatchNorms of each training step on BN1-BN4 and
+        # the epilogue after each all-reduce.
         expected = {"GM": steps, "K1": steps, "K3": 4 * steps,
                     "K2": 4 * (steps + MR_EPOCHS * val_batches + previews),
-                    **bn_launches(18 * steps)}
+                    **bn_launches(18 * steps, group=True)}
         got = {k: result["counts"][k] for k in expected}
         check(got == expected, f"rank {r} trainer launches {got}, expected {expected}")
         for k, v in got.items():
@@ -2761,7 +2813,7 @@ def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
     gaps = held_against_one_rank(two, ones, tmp / "sp_states", "1 x 2 spatial vs one rank",
                                  SP_STATS_RTOL, SP_GRAD_RTOL, SP_BN_RTOL)
     expected = expect_launches(GM=SP_STEPS, K1=SP_STEPS, K2=4 * SP_STEPS, K3=4 * SP_STEPS,
-                               **bn_launches(18 * SP_STEPS))
+                               **bn_launches(18 * SP_STEPS, group=True))
     for r, result in enumerate(results):
         check(result["step_counts"] == expected,
               f"rank {r} step launches {result['step_counts']}, expected {expected}")
@@ -2813,7 +2865,7 @@ def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
         # Both ranks of data row 0 predict the previews, each its stripe.
         want = {"GM": steps, "K1": steps, "K3": 4 * steps,
                 "K2": 4 * (steps + SP_EPOCHS * 2),  # a validation batch, the previews
-                **bn_launches(18 * steps)}
+                **bn_launches(18 * steps, group=True)}
         got = {k: result["counts"][k] for k in want}
         check(got == want, f"rank {r} spatial trainer launches {got}, expected {want}")
         for k in want:
@@ -2909,12 +2961,19 @@ def phase_reference_step() -> None:
           "equals the CPU's over 12 steps ok")
 
 
-def counters() -> dict[str, object]:
-    """Every kernel wrapper by name; each counts its launches in ``.launches``."""
-    return {"GM": gray_means_cuda, "K1": pointwise_chain_cuda,
-            "K2": pool.maxpool2x2_fwd_cuda, "K3": pool.maxpool2x2_bwd_cuda,
-            "BN1": batchnorm.bn_stats_cuda, "BN2": batchnorm.bn_relu_fwd_cuda,
-            "BN3": batchnorm.bn_relu_bwd_sums_cuda, "BN4": batchnorm.bn_relu_bwd_dx_cuda}
+def counters() -> dict[str, tuple]:
+    """Every kernel's launchers by the kernel's name; each counts its
+    launches in ``.launches``. BN1 and BN2 also launch from one call of
+    ``bn_relu_forward`` (BN1 with the epilogue in its second pass), BN3 and
+    BN4 from one of ``bn_relu_backward``; BNE is that second pass alone, the
+    epilogue after a group's all-reduce."""
+    return {"GM": (gray_means_cuda,), "K1": (pointwise_chain_cuda,),
+            "K2": (pool.maxpool2x2_fwd_cuda,), "K3": (pool.maxpool2x2_bwd_cuda,),
+            "BN1": (batchnorm.bn_stats_cuda, batchnorm.bn_relu_forward_cuda),
+            "BN2": (batchnorm.bn_relu_fwd_cuda, batchnorm.bn_relu_forward_cuda),
+            "BN3": (batchnorm.bn_relu_bwd_sums_cuda, batchnorm.bn_relu_backward_cuda),
+            "BN4": (batchnorm.bn_relu_bwd_dx_cuda, batchnorm.bn_relu_backward_cuda),
+            "BNE": (batchnorm.bn_moments_cuda, batchnorm.bn_bwd_coefficients_cuda)}
 
 
 def sync_source(stack: traceback.StackSummary) -> str:
@@ -2973,7 +3032,7 @@ def phase_train_loop(images: torch.Tensor, targets: torch.Tensor) -> dict:
     call_s = time.perf_counter() - t0
     run_counts = counts()
     k = LOOP_STEPS
-    check(run_counts == expect_launches(GM=k, K1=k, K2=4 * k, K3=4 * k),
+    check(run_counts == expect_launches(**train_launches(k)),
           f"K-step loop launches {run_counts}")
     check(all(tuple(s.shape) == (k,) for s in stats), "K-step loop stats are not (K,)")
     losses = [metrics_from_stats(LossStats(*(f[i] for f in stats)))["loss"] for i in range(k)]
@@ -3088,17 +3147,22 @@ def phase_init() -> None:
           f"model built on the CPU from the same seed ok")
 
 
+def launcher_counts() -> dict[object, int]:
+    """Each launcher's count, for ``restore_counts``."""
+    return {k: k.launches for kernels in counters().values() for k in kernels}
+
+
 def reset_counts() -> None:
-    restore_counts(dict.fromkeys(counters(), 0))
+    restore_counts(dict.fromkeys(launcher_counts(), 0))
 
 
-def restore_counts(saved: dict[str, int]) -> None:
-    for name, kernel in counters().items():
-        kernel.launches = saved[name]
+def restore_counts(saved: dict[object, int]) -> None:
+    for kernel, launches in saved.items():
+        kernel.launches = launches
 
 
 def counts() -> dict[str, int]:
-    return {name: kernel.launches for name, kernel in counters().items()}
+    return {name: sum(k.launches for k in kernels) for name, kernels in counters().items()}
 
 
 def expect_launches(**nonzero: int) -> dict[str, int]:
@@ -3106,9 +3170,18 @@ def expect_launches(**nonzero: int) -> dict[str, int]:
     return {**dict.fromkeys(counters(), 0), **nonzero}
 
 
-def bn_launches(per_step: int) -> dict[str, int]:
-    """BN1-BN4 each ``per_step`` times."""
-    return dict.fromkeys(BN_NAMES, per_step)
+def bn_launches(per_step: int, group: bool = False) -> dict[str, int]:
+    """BN1-BN4 each ``per_step`` times; with a group of several ranks also
+    the epilogue twice as often (after the forward's and the backward's
+    all-reduce)."""
+    return {**dict.fromkeys(BN_NAMES, per_step), **({"BNE": 2 * per_step} if group else {})}
+
+
+def train_launches(steps: int) -> dict[str, int]:
+    """One rank's training steps: the gray means, K1, 4 K2 and 4 K3, and the
+    18 BatchNorms' BN1-BN4, a step."""
+    return {"GM": steps, "K1": steps, "K2": 4 * steps, "K3": 4 * steps,
+            **bn_launches(18 * steps)}
 
 
 def phase_train(state, runner) -> tuple[float, list[LossStats]]:
@@ -3190,7 +3263,8 @@ def phase_profile(runner, state, label: str = "profile") -> None:
         return
     print(f"{label} (1 step after 1 in the profiler's warm-up): kernels {total / 1e3:.2f} "
           f"ms/step of a {window_us / 1e3:.2f} ms/step window, device busy "
-          f"{100 * total / window_us:.1f}%")
+          f"{100 * total / window_us:.1f}%; {sum(r[1] for r in rows)} device operations a "
+          f"step (kernels, copies and sets)")
     groups: dict[str, float] = {}
     for dev, _, key in rows:
         name = next((g for g, subs in KERNEL_GROUPS if any(s in key for s in subs)), "other")
@@ -3267,7 +3341,7 @@ def phase_compiled(images: torch.Tensor, targets: torch.Tensor, eager_ms: float)
     ms_step, stats = phase_train(state, runner)
     launches = counts()
     recompiles = graph_count() - before
-    expected = expect_launches(GM=STEPS, K1=STEPS, K2=4 * STEPS, K3=4 * STEPS)
+    expected = expect_launches(**train_launches(STEPS))
     check(launches == expected, f"compiled step launches {launches} in {STEPS} steps, "
           f"expected {expected}: a kernel ran outside the graph or was decomposed")
     check(recompiles == 0, f"the compiled step recompiled {recompiles} times")
@@ -3280,7 +3354,8 @@ def phase_compiled(images: torch.Tensor, targets: torch.Tensor, eager_ms: float)
           f"warm-up: {ms_step:.2f} ms/step, {BATCH * 1e3 / ms_step:.1f} pairs/s (eager "
           f"\"train:\" {eager_ms:.2f} ms/step in this call: {eager_ms / ms_step:.3f}x); graphs "
           f"{graphs}, recompiles {recompiles}; kernel launches gray means {launches['GM']} K1 "
-          f"{launches['K1']} K2 {launches['K2']} K3 {launches['K3']} (custom ops inside the "
+          f"{launches['K1']} K2 {launches['K2']} K3 {launches['K3']} BN1-BN4 "
+          f"{'/'.join(str(launches[n]) for n in BN_NAMES)} (custom ops inside the "
           f"graph); losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory "
           f"{peak_gib:.2f} GiB")
     phase_profile(runner, state, "profile compiled")
@@ -3333,7 +3408,8 @@ def phase_compile_cache(tmp: Path, caches: Path) -> dict:
     torch._dynamo.reset()  # the trainer traces and looks its graphs up itself
     first, first_counts, first_s = counted(trainer.main, compile_cache_argv(tmp, "first"))
     steps = 1  # 144 train samples pinned at batch 128
-    expected = expect_launches(GM=steps, K1=steps, K2=4 * (steps + 1 + 1), K3=4 * steps)
+    expected = expect_launches(GM=steps, K1=steps, K2=4 * (steps + 1 + 1), K3=4 * steps,
+                               **bn_launches(18 * steps))
     check(first_counts == expected, f"compiled trainer launches {first_counts}, expected "
           f"{expected}")
     check(all(first["compile_cache"][k]["source"] == "compiled"
@@ -3464,7 +3540,7 @@ def run_all(caches: Path) -> int:
     torch.cuda.reset_peak_memory_stats()
     ms_step, stats = phase_train(state, runner)
     main_counts = counts()
-    expected = expect_launches(GM=STEPS, K1=STEPS, K2=4 * STEPS, K3=4 * STEPS)
+    expected = expect_launches(**train_launches(STEPS))
     check(main_counts == expected,
           f"kernel launches {main_counts} in {STEPS} steps, expected {expected}")
     launches = main_counts["K1"]
@@ -3474,7 +3550,8 @@ def run_all(caches: Path) -> int:
           f"{PAYLOAD} on device, {STEPS} steps after {WARMUP} warm-up: {ms_step:.2f} ms/step, "
           f"{BATCH * 1e3 / ms_step:.1f} pairs/s, kernel launches gray means "
           f"{main_counts['GM']} K1 {main_counts['K1']} K2 "
-          f"{main_counts['K2']} K3 {main_counts['K3']}, losses "
+          f"{main_counts['K2']} K3 {main_counts['K3']} BN1-BN4 "
+          f"{'/'.join(str(main_counts[n]) for n in BN_NAMES)}, losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (before the pools ran on "
           f"K2/K3: {BEFORE_POOL_KERNELS})")
@@ -3653,21 +3730,20 @@ def run_all(caches: Path) -> int:
             "multi_rank_launches": multi_rank[name],
             "spatial_launches": {part: spatial[part][name] for part in spatial},
         })
-    # BN1-BN4: their path is a model that computes its BatchNorms (the
-    # fused_block knob's steps; also bf16 statistics, several ranks and
-    # height stripes). Times are sums over the main path's 18 BatchNorm
-    # inputs (bf16, ReLU on; per-level figures on the "bn timing:" lines);
-    # the library call is the PyTorch primitive for the same function
-    # (batch_norm_stats, _elemt, _backward_reduce, _backward_elemt), which the
-    # port never calls, and cudnn_ms cuDNN's BatchNorm + ReLU forward (BN1,
-    # BN2) or backward (BN3, BN4) at the same inputs.
+    # BN1-BN4: every training BatchNorm (the main path's 18 a step). Times are
+    # sums over the main path's 18 BatchNorm inputs (bf16, ReLU on; per-level
+    # figures on the "bn timing:" lines); the library call is the PyTorch
+    # primitive for the same function (batch_norm_stats, _elemt,
+    # _backward_reduce, _backward_elemt), which the port never calls, and
+    # cudnn_ms PyTorch's BatchNorm + ReLU forward (BN1, BN2) or backward (BN3,
+    # BN4) at the same inputs.
     for name, fn, replaces in BN_KERNELS:
         kernels.append({
             "name": fn,
             "route": "cuda",
             "source": "stereo_depth_estimation_tpu_torch/csrc/batchnorm.cu",
             "replaces": replaces,
-            "launches": knobs["fused_block"]["counts"][name],
+            "launches": main_counts[name],
             "max_abs_err": bn_errors[name],
             "bound_by": "bytes",
             **bn_times[name],

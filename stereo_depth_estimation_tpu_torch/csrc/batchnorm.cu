@@ -2,16 +2,29 @@
 // activations, forward and backward, sm_90a. Four kernels, BN1-BN4:
 //
 //   BN1 bn_stats          per-channel sum and sum of squares of x and the
-//                         element count, (2C + 1) f32 (the layout of
-//                         models/unet.py _moment_sums); in bf16-statistics
-//                         mode each sum is n times the bf16-rounded mean.
+//                         element count (2C + 1 f32); in bf16-statistics mode
+//                         each sum is n times the bf16-rounded mean. Its
+//                         second pass can also form the statistics, (3C + 1)
+//                         f32 = mean, var = E[x^2] - E[x]^2, scale = gamma /
+//                         sqrt(var + eps), n, and update nn.BatchNorm2d's
+//                         running buffers in place.
 //   BN2 bn_relu_fwd       y = (x - mean) * scale + beta in f32, ReLU if asked,
-//                         stored in x's dtype (scale = gamma * rsqrt(var + eps)).
+//                         stored in x's dtype.
 //   BN3 bn_relu_bwd_sums  sum of dyp and of dyp * (z - mean), (2C) f32, where
 //                         dyp = dy where BN2's pre-activation is > 0, else 0
-//                         (dyp = dy with the ReLU off).
+//                         (dyp = dy with the ReLU off). Its second pass can
+//                         also form (4C) f32 = dbeta, dgamma and BN4's t1, t2.
 //   BN4 bn_relu_bwd_dx    dz = dyp * scale - t1 - (z - mean) * t2, stored in z's
-//                         dtype, from the (C,) coefficients t1 and t2.
+//                         dtype.
+//
+// A training BatchNorm + ReLU is bn_relu_forward (BN1 with the statistics,
+// then BN2) and bn_relu_backward (BN3 with the coefficients, then BN4): six
+// launches from two calls.
+//
+// With a group of several ranks the sums are all-reduced between BN1's (or
+// BN3's) second pass and the per-channel arithmetic: that arithmetic is then
+// the second pass's kernel alone, run on the reduced sums (bn_moments,
+// bn_bwd_coefficients). One kernel, bn_sums_final, does it in every case.
 //
 // They are not TPU kernels: in the JAX package this arithmetic is fused by
 // XLA into the neighbouring ops. They stand for the flax BatchNorm of
@@ -46,6 +59,9 @@
 //   the shape alone, so two launches give the same bytes.
 // - Rows are cut into enough blocks to fill the 132 SMs even at the fifth
 //   level's 38,400 rows of 512 channels, with at least 8 rows a thread.
+// - The per-channel arithmetic runs in the reductions' second pass, so a
+//   training BatchNorm + ReLU is six launches and no (C,) op between them;
+//   BN2, BN3 and BN4 read the mean and scale that pass wrote once.
 // - BN2, BN3 and BN4 compute the pre-activation with the same correctly
 //   rounded sub, mul and add (__fsub_rn, __fmul_rn, __fadd_rn: no FMA
 //   contraction), as the plain versions' separate PyTorch ops do, so the
@@ -262,33 +278,115 @@ bn_bwd_sums_partial(const Lane* __restrict__ dy, const Lane* __restrict__ z,
   store_partials<V>(s, q, partial, t);
 }
 
-// Second pass of BN1 and BN3: out[j] = the sum over the chunks' partials of
-// column j, in a fixed order; BN1 in bf16-statistics mode replaces each sum
-// by n * bf16(sum / n), and BN1 writes the count n after the 2c sums.
+// What the second pass of BN1 writes for each channel from its two sums
+// (a null pointer is not written): the sums and the count (the input of a
+// group's all-reduce), and the per-channel epilogue of models/unet.py's
+// training BatchNorm: mean, biased var = E[x^2] - E[x]^2, scale = gamma /
+// sqrt(var + eps), the count, and nn.BatchNorm2d's running update (unbiased
+// var, momentum, num_batches_tracked + 1) in place.
+struct StatsEpilogue {
+  float* sums;           // (2c + 1): sum, sum of squares, count
+  float* stats;          // (3c + 1): mean, var, scale, count
+  const float* gamma;    // (c)
+  float* running_mean;   // (c), or null: no running update
+  float* running_var;    // (c)
+  int64_t* tracked;      // (1)
+  const float* count;    // the count on the device (after an all-reduce), or null: n
+  float n;
+  float eps, keep, take;  // keep = 1 - momentum, take = momentum
+  int bf16_mean;          // each sum becomes n * bf16(sum / n)
+};
+
+// What the second pass of BN3 writes for each channel from its two sums:
+// the sums, and BN4's coefficients with the BatchNorm's parameter
+// gradients, (4c) = dbeta, dgamma, t1, t2, where dz = dyp * scale - t1 -
+// (z - mean) * t2. dbeta and dgamma come from `local` where given (this
+// rank's share), t1 and t2 from the sums.
+struct GradEpilogue {
+  float* sums;         // (2c): sum of dyp, sum of dyp * (z - mean)
+  float* coef;         // (4c): dbeta, dgamma, t1, t2
+  const float* local;  // (2c), or null: the sums themselves
+  const float* stats;  // (3c + 1): the forward's mean, var, scale, count
+  float eps;
+};
+
+// 1 / sqrt(var + eps), each step correctly rounded (as 1 / torch.sqrt).
+__device__ __forceinline__ float inv_std(float var, float eps) {
+  return __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+}
+
+__device__ __forceinline__ void finish(const StatsEpilogue& e, int64_t c, int64_t j, float s,
+                                       float q) {
+  const float n = e.count != nullptr ? *e.count : e.n;
+  if (e.bf16_mean) {
+    s = __fmul_rn(round_bf16(__fdiv_rn(s, n)), n);
+    q = __fmul_rn(round_bf16(__fdiv_rn(q, n)), n);
+  }
+  if (e.sums != nullptr) {
+    e.sums[j] = s;
+    e.sums[c + j] = q;
+    if (j == 0) e.sums[2 * c] = n;
+  }
+  if (e.stats == nullptr) return;
+  const float mean = __fdiv_rn(s, n);
+  const float var = __fsub_rn(__fdiv_rn(q, n), __fmul_rn(mean, mean));
+  e.stats[j] = mean;
+  e.stats[c + j] = var;
+  e.stats[2 * c + j] = __fmul_rn(inv_std(var, e.eps), e.gamma[j]);
+  if (j == 0) e.stats[3 * c] = n;
+  if (e.running_mean == nullptr) return;
+  const float unbiased = __fmul_rn(var, __fdiv_rn(n, fmaxf(__fsub_rn(n, 1.0f), 1.0f)));
+  e.running_mean[j] = __fadd_rn(__fmul_rn(e.running_mean[j], e.keep), __fmul_rn(mean, e.take));
+  e.running_var[j] = __fadd_rn(__fmul_rn(e.running_var[j], e.keep), __fmul_rn(unbiased, e.take));
+  if (j == 0) *e.tracked += 1;
+}
+
+__device__ __forceinline__ void finish(const GradEpilogue& e, int64_t c, int64_t j, float s,
+                                       float q) {
+  if (e.sums != nullptr) {
+    e.sums[j] = s;
+    e.sums[c + j] = q;
+  }
+  if (e.coef == nullptr) return;
+  const float var = e.stats[c + j], scale = e.stats[2 * c + j], n = e.stats[3 * c];
+  const float inv = inv_std(var, e.eps);
+  const float ls = e.local != nullptr ? e.local[j] : s;
+  const float lq = e.local != nullptr ? e.local[c + j] : q;
+  e.coef[j] = ls;
+  e.coef[c + j] = __fmul_rn(lq, inv);
+  e.coef[2 * c + j] = __fmul_rn(scale, __fdiv_rn(s, n));
+  e.coef[3 * c + j] = __fmul_rn(scale, __fdiv_rn(__fmul_rn(inv, __fmul_rn(q, inv)), n));
+}
+
+// Second pass of BN1 and BN3: each channel's two sums over the chunks'
+// partials (row k: the first sums in [0, c), the second in [c, 2c)), each
+// in a fixed order, then the epilogue `e` for the channel. Run on a reduced
+// (2c) sum as one chunk it is the epilogue alone (0 + s is s).
+template <typename Epilogue>
 __global__ void __launch_bounds__(kFinalCols * kFinalParts)
-bn_sums_final(const float* __restrict__ partial, float* __restrict__ out, int chunks,
-              int64_t width, float n, int bf16_mean, int write_count) {
-  __shared__ float sh[kFinalParts][kFinalCols + 1];
+bn_sums_final(const float* __restrict__ partial, int chunks, int64_t c, Epilogue e) {
+  __shared__ float sh[2][kFinalParts][kFinalCols + 1];
   const int jl = threadIdx.x % kFinalCols, p = threadIdx.x / kFinalCols;
   const int64_t j = static_cast<int64_t>(blockIdx.x) * kFinalCols + jl;
-  float acc = 0.0f;
-  if (j < width) {
+  float s = 0.0f, q = 0.0f;
+  if (j < c) {
     for (int b = p; b < chunks; b += kFinalParts) {
-      acc = __fadd_rn(acc, partial[static_cast<int64_t>(b) * width + j]);
+      const float* row = partial + static_cast<int64_t>(b) * 2 * c;
+      s = __fadd_rn(s, row[j]);
+      q = __fadd_rn(q, row[c + j]);
     }
   }
-  sh[p][jl] = acc;
+  sh[0][p][jl] = s;
+  sh[1][p][jl] = q;
   __syncthreads();
   for (int half = kFinalParts / 2; half > 0; half /= 2) {
-    if (p < half) sh[p][jl] = __fadd_rn(sh[p][jl], sh[p + half][jl]);
+    if (p < half) {
+      sh[0][p][jl] = __fadd_rn(sh[0][p][jl], sh[0][p + half][jl]);
+      sh[1][p][jl] = __fadd_rn(sh[1][p][jl], sh[1][p + half][jl]);
+    }
     __syncthreads();
   }
-  if (p == 0 && j < width) {
-    float total = sh[0][jl];
-    if (bf16_mean) total = __fmul_rn(round_bf16(__fdiv_rn(total, n)), n);
-    out[j] = total;
-  }
-  if (write_count && blockIdx.x == 0 && threadIdx.x == 0) out[width] = n;
+  if (p == 0 && j < c) finish(e, c, j, sh[0][0][jl], sh[1][0][jl]);
 }
 
 // BN2: y = (x - mean) * scale + beta, ReLU'd if kRelu, in x's dtype.
@@ -382,16 +480,19 @@ unsigned int elementwise_blocks(const Tiling& t) {
                                                                   : kMaxElementwiseBlocks);
 }
 
-void launch_final(const float* partial, float* out, int chunks, int64_t width, int64_t m,
-                  int bf16_mean, int write_count, cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((width + kFinalCols - 1) / kFinalCols);
-  bn_sums_final<<<blocks, kFinalCols * kFinalParts, 0, stream>>>(
-      partial, out, chunks, width, static_cast<float>(m), bf16_mean, write_count);
+template <typename Epilogue>
+void launch_final(const float* partial, int chunks, int64_t c, const Epilogue& e,
+                  cudaStream_t stream) {
+  const unsigned int blocks = static_cast<unsigned int>((c + kFinalCols - 1) / kFinalCols);
+  bn_sums_final<Epilogue><<<blocks, kFinalCols * kFinalParts, 0, stream>>>(partial, chunks, c,
+                                                                           e);
 }
 
+// BN1: the partials, then the second pass with the epilogue `e` (its n and
+// bf16_mean are set here).
 template <typename Lane, int V>
-void stats(const void* x, float* out, float* partial, int64_t m, int64_t c, int bf16_stats,
-           cudaStream_t stream) {
+void reduce_stats(const void* x, float* partial, int64_t m, int64_t c, int bf16_stats,
+           StatsEpilogue e, cudaStream_t stream) {
   const Tiling t = make_tiling(m, c, V);
   const int chunks = m > 0 ? t.chunks : 0;
   if (chunks > 0) {
@@ -403,12 +504,16 @@ void stats(const void* x, float* out, float* partial, int64_t m, int64_t c, int 
       bn_stats_partial<Lane, V, false><<<grid, kThreads, 0, stream>>>(xs, partial, t);
     }
   }
-  launch_final(partial, out, chunks, 2 * c, m, bf16_stats, 1, stream);
+  e.n = static_cast<float>(m);
+  e.bf16_mean = bf16_stats;
+  launch_final(partial, chunks, c, e, stream);
 }
 
+// BN3: the partials, then the second pass with the epilogue `e`. mean and
+// scale are the forward's stats[0, c) and stats[2c, 3c).
 template <typename Lane, int V>
-void bwd_sums(const void* dy, const void* z, const float* mean, const float* scale,
-              const float* beta, float* out, float* partial, int64_t m, int64_t c, int relu,
+void reduce_grads(const void* dy, const void* z, const float* stats, const float* beta,
+              float* partial, int64_t m, int64_t c, int relu, const GradEpilogue& e,
               cudaStream_t stream) {
   const Tiling t = make_tiling(m, c, V);
   const int chunks = m > 0 ? t.chunks : 0;
@@ -416,6 +521,8 @@ void bwd_sums(const void* dy, const void* z, const float* mean, const float* sca
     const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(t.tiles));
     const auto* d = static_cast<const Lane*>(dy);
     const auto* zs = static_cast<const Lane*>(z);
+    const float* mean = stats;
+    const float* scale = stats + 2 * c;
     if (relu) {
       bn_bwd_sums_partial<Lane, V, true><<<grid, kThreads, 0, stream>>>(
           d, zs, mean, scale, beta, partial, t);
@@ -424,16 +531,18 @@ void bwd_sums(const void* dy, const void* z, const float* mean, const float* sca
           d, zs, mean, scale, beta, partial, t);
     }
   }
-  launch_final(partial, out, chunks, 2 * c, m, 0, 0, stream);
+  launch_final(partial, chunks, c, e, stream);
 }
 
 template <typename Lane, int V>
-void fwd(const void* x, const float* mean, const float* scale, const float* beta, void* y,
-         int64_t m, int64_t c, int relu, cudaStream_t stream) {
+void fwd(const void* x, const float* stats, const float* beta, void* y, int64_t m, int64_t c,
+         int relu, cudaStream_t stream) {
   const Tiling t = make_tiling(m, c, V);
   const dim3 grid(elementwise_blocks(t), static_cast<unsigned int>(t.tiles));
   const auto* xs = static_cast<const Lane*>(x);
   auto* ys = static_cast<Lane*>(y);
+  const float* mean = stats;
+  const float* scale = stats + 2 * c;
   if (relu) {
     bn_relu_fwd_kernel<Lane, V, true><<<grid, kThreads, 0, stream>>>(xs, mean, scale, beta,
                                                                      ys, t);
@@ -443,15 +552,19 @@ void fwd(const void* x, const float* mean, const float* scale, const float* beta
   }
 }
 
+// BN4. t1 and t2 are coef[2c, 3c) and coef[3c, 4c).
 template <typename Lane, int V>
-void bwd_dx(const void* dy, const void* z, const float* mean, const float* scale,
-            const float* beta, const float* t1, const float* t2, void* dz, int64_t m,
-            int64_t c, int relu, cudaStream_t stream) {
+void bwd_dx(const void* dy, const void* z, const float* stats, const float* beta,
+            const float* coef, void* dz, int64_t m, int64_t c, int relu, cudaStream_t stream) {
   const Tiling t = make_tiling(m, c, V);
   const dim3 grid(elementwise_blocks(t), static_cast<unsigned int>(t.tiles));
   const auto* d = static_cast<const Lane*>(dy);
   const auto* zs = static_cast<const Lane*>(z);
   auto* out = static_cast<Lane*>(dz);
+  const float* mean = stats;
+  const float* scale = stats + 2 * c;
+  const float* t1 = coef + 2 * c;
+  const float* t2 = coef + 3 * c;
   if (relu) {
     bn_relu_bwd_dx_kernel<Lane, V, true><<<grid, kThreads, 0, stream>>>(
         d, zs, mean, scale, beta, t1, t2, out, t);
@@ -479,6 +592,29 @@ bool vec_ok(int is_bf16, int64_t c, std::initializer_list<const void*> ptrs) {
 
 bool valid(int64_t m, int64_t c) { return m >= 0 && c > 0; }
 
+// The epilogue that forms the statistics and updates the running buffers.
+StatsEpilogue moments_epilogue(void* stats, const void* gamma, void* running_mean,
+                               void* running_var, void* tracked, float eps, double momentum) {
+  StatsEpilogue e{};
+  e.stats = static_cast<float*>(stats);
+  e.gamma = static_cast<const float*>(gamma);
+  e.running_mean = static_cast<float*>(running_mean);
+  e.running_var = static_cast<float*>(running_var);
+  e.tracked = static_cast<int64_t*>(tracked);
+  e.eps = eps;
+  e.keep = static_cast<float>(1.0 - momentum);
+  e.take = static_cast<float>(momentum);
+  return e;
+}
+
+GradEpilogue coefficients_epilogue(const void* stats, void* coef, float eps) {
+  GradEpilogue e{};
+  e.coef = static_cast<float*>(coef);
+  e.stats = static_cast<const float*>(stats);
+  e.eps = eps;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -491,54 +627,125 @@ const char* bn_error_string(int code) {
 // (bn_max_chunks(), 2c) f32.
 int bn_max_chunks() { return kMaxChunks; }
 
-// BN1. x: (m, c) f32 (is_bf16 = 0) or bf16, contiguous; out: (2c + 1) f32;
-// partial: scratch of bn_max_chunks() * 2c f32. Launches on `stream` and
-// returns cudaGetLastError().
-int bn_stats(const void* x, void* out, void* partial, int64_t m, int64_t c, int is_bf16,
-             int bf16_stats, void* stream) {
+// Every entry launches on `stream` and returns cudaGetLastError(). x, y, dy,
+// z, dz: (m, c) f32 (is_bf16 = 0) or bf16, contiguous, all of one call in
+// one dtype; the rest f32 but `tracked` (int64); partial: scratch of
+// bn_max_chunks() * 2c f32.
+
+// BN1, the sums: out (2c + 1) = sum, sum of squares, count.
+int bn_stats(const void* x, void* out, int64_t m, int64_t c, int is_bf16, int bf16_stats,
+             void* partial, void* stream) {
   if (!valid(m, c)) return static_cast<int>(cudaErrorInvalidValue);
+  StatsEpilogue e{};
+  e.sums = static_cast<float*>(out);
   const bool v = vec_ok(is_bf16, c, {x});
-  BN_DISPATCH(is_bf16, v, stats, x, static_cast<float*>(out), static_cast<float*>(partial),
-              m, c, bf16_stats, static_cast<cudaStream_t>(stream));
+  BN_DISPATCH(is_bf16, v, reduce_stats, x, static_cast<float*>(partial), m, c, bf16_stats, e,
+              static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// BN2. x, y: (m, c) in one dtype; mean, scale, beta: (c) f32.
-int bn_relu_fwd(const void* x, const void* mean, const void* scale, const void* beta,
-                void* y, int64_t m, int64_t c, int is_bf16, int relu, void* stream) {
+// A training BatchNorm (+ ReLU) forward in one call: BN1 with the epilogue,
+// then BN2. stats (3c + 1) = mean, var, scale, count; gamma, beta,
+// running_mean, running_var (c); tracked (1) int64; the running buffers and
+// tracked are updated in place; y as x.
+int bn_relu_forward(const void* x, const void* gamma, const void* beta, void* running_mean,
+                    void* running_var, void* tracked, void* stats, void* y, int64_t m,
+                    int64_t c, int is_bf16, int bf16_stats, int relu, float eps,
+                    double momentum, void* partial, void* stream) {
+  if (!valid(m, c)) return static_cast<int>(cudaErrorInvalidValue);
+  const StatsEpilogue e =
+      moments_epilogue(stats, gamma, running_mean, running_var, tracked, eps, momentum);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool v = vec_ok(is_bf16, c, {x, y});
+  BN_DISPATCH(is_bf16, v, reduce_stats, x, static_cast<float*>(partial), m, c, bf16_stats, e,
+              s);
+  if (m > 0) {
+    BN_DISPATCH(is_bf16, v, fwd, x, static_cast<const float*>(stats),
+                static_cast<const float*>(beta), y, m, c, relu, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The epilogue alone on BN1's (2c + 1) sums after a group's all-reduce: the
+// stats and the running update as bn_relu_forward's, with the count read
+// from sums[2c].
+int bn_moments(const void* sums, void* stats, const void* gamma, void* running_mean,
+               void* running_var, void* tracked, int64_t c, float eps, double momentum,
+               void* stream) {
+  if (!valid(0, c)) return static_cast<int>(cudaErrorInvalidValue);
+  StatsEpilogue e =
+      moments_epilogue(stats, gamma, running_mean, running_var, tracked, eps, momentum);
+  e.count = static_cast<const float*>(sums) + 2 * c;
+  launch_final(static_cast<const float*>(sums), 1, c, e, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// BN2. stats (3c + 1) from BN1's epilogue; beta (c).
+int bn_relu_fwd(const void* x, const void* stats, const void* beta, void* y, int64_t m,
+                int64_t c, int is_bf16, int relu, void* stream) {
   if (!valid(m, c)) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaGetLastError());
   const bool v = vec_ok(is_bf16, c, {x, y});
-  BN_DISPATCH(is_bf16, v, fwd, x, static_cast<const float*>(mean),
-              static_cast<const float*>(scale), static_cast<const float*>(beta), y, m, c, relu,
+  BN_DISPATCH(is_bf16, v, fwd, x, static_cast<const float*>(stats),
+              static_cast<const float*>(beta), y, m, c, relu,
               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// BN3. dy, z: (m, c) in one dtype; mean, scale, beta: (c) f32; out: (2c) f32;
-// partial: scratch of bn_max_chunks() * 2c f32.
-int bn_relu_bwd_sums(const void* dy, const void* z, const void* mean, const void* scale,
-                     const void* beta, void* out, void* partial, int64_t m, int64_t c,
-                     int is_bf16, int relu, void* stream) {
+// BN3, the sums: out (2c) = sum of dyp, sum of dyp * (z - mean).
+int bn_relu_bwd_sums(const void* dy, const void* z, const void* stats, const void* beta,
+                     void* out, int64_t m, int64_t c, int is_bf16, int relu, void* partial,
+                     void* stream) {
   if (!valid(m, c)) return static_cast<int>(cudaErrorInvalidValue);
+  GradEpilogue e{};
+  e.sums = static_cast<float*>(out);
   const bool v = vec_ok(is_bf16, c, {dy, z});
-  BN_DISPATCH(is_bf16, v, bwd_sums, dy, z, static_cast<const float*>(mean),
-              static_cast<const float*>(scale), static_cast<const float*>(beta),
-              static_cast<float*>(out), static_cast<float*>(partial), m, c, relu,
+  BN_DISPATCH(is_bf16, v, reduce_grads, dy, z, static_cast<const float*>(stats),
+              static_cast<const float*>(beta), static_cast<float*>(partial), m, c, relu, e,
               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// BN4. dy, z, dz: (m, c) in one dtype; mean, scale, beta, t1, t2: (c) f32.
-int bn_relu_bwd_dx(const void* dy, const void* z, const void* mean, const void* scale,
-                   const void* beta, const void* t1, const void* t2, void* dz, int64_t m,
-                   int64_t c, int is_bf16, int relu, void* stream) {
+// A training BatchNorm (+ ReLU) backward in one call: BN3 with the
+// epilogue, then BN4. coef (4c) = dbeta, dgamma, t1, t2; dz as z.
+int bn_relu_backward(const void* dy, const void* z, const void* stats, const void* beta,
+                     void* coef, void* dz, int64_t m, int64_t c, int is_bf16, int relu,
+                     float eps, void* partial, void* stream) {
+  if (!valid(m, c)) return static_cast<int>(cudaErrorInvalidValue);
+  const GradEpilogue e = coefficients_epilogue(stats, coef, eps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool v = vec_ok(is_bf16, c, {dy, z, dz});
+  BN_DISPATCH(is_bf16, v, reduce_grads, dy, z, static_cast<const float*>(stats),
+              static_cast<const float*>(beta), static_cast<float*>(partial), m, c, relu, e, s);
+  if (m > 0) {
+    BN_DISPATCH(is_bf16, v, bwd_dx, dy, z, static_cast<const float*>(stats),
+                static_cast<const float*>(beta), static_cast<const float*>(coef), dz, m, c,
+                relu, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The epilogue alone on BN3's (2c) sums after a group's all-reduce (`total`):
+// coef as bn_relu_backward's, with dbeta and dgamma from this rank's sums
+// `local`.
+int bn_bwd_coefficients(const void* total, const void* local, const void* stats, void* coef,
+                        int64_t c, float eps, void* stream) {
+  if (!valid(0, c)) return static_cast<int>(cudaErrorInvalidValue);
+  GradEpilogue e = coefficients_epilogue(stats, coef, eps);
+  e.local = static_cast<const float*>(local);
+  launch_final(static_cast<const float*>(total), 1, c, e, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// BN4. coef (4c) from BN3's epilogue.
+int bn_relu_bwd_dx(const void* dy, const void* z, const void* stats, const void* beta,
+                   const void* coef, void* dz, int64_t m, int64_t c, int is_bf16, int relu,
+                   void* stream) {
   if (!valid(m, c)) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaGetLastError());
   const bool v = vec_ok(is_bf16, c, {dy, z, dz});
-  BN_DISPATCH(is_bf16, v, bwd_dx, dy, z, static_cast<const float*>(mean),
-              static_cast<const float*>(scale), static_cast<const float*>(beta),
-              static_cast<const float*>(t1), static_cast<const float*>(t2), dz, m, c, relu,
+  BN_DISPATCH(is_bf16, v, bwd_dx, dy, z, static_cast<const float*>(stats),
+              static_cast<const float*>(beta), static_cast<const float*>(coef), dz, m, c, relu,
               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

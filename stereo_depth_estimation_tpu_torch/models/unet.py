@@ -16,20 +16,20 @@ state_dict loads as it is, whatever the knobs below.
 
 ``forward`` takes and returns the JAX package's NHWC layout; inside, the NHWC
 tensor is viewed as NCHW, which is the ``channels_last`` memory format, so no
-copy is made, and the model runs channels_last throughout. BatchNorm is
-``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1, biased variance to normalise,
-unbiased variance into the running stats), the semantics the JAX package
-re-implements. ``compute_dtype=torch.bfloat16`` runs the convolutions in bf16
-under autocast while parameters and BatchNorm statistics stay float32.
+copy is made, and the model runs channels_last throughout. Every BatchNorm is
+a ``MeshBatchNorm2d``, an ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1, biased
+variance to normalise, unbiased variance into the running stats, the
+semantics the JAX package re-implements) whose training statistics and the
+ReLU after it run on the hand-written kernels BN1-BN4 (``ops/batchnorm.py``,
+``_BatchNormReLU``); eval mode stays on cuDNN's BatchNorm. Its parameter and
+buffer names are ``nn.BatchNorm2d``'s, so checkpoints do not change.
+``compute_dtype=torch.bfloat16`` runs the convolutions in bf16 under
+autocast while parameters and BatchNorm statistics stay float32.
 
 Built with ``bn_group``, a ``torch.distributed`` group of more than one rank,
-every BatchNorm is a ``MeshBatchNorm2d`` instead: its statistics are global
-over the group's ranks, as the JAX BatchNorm's are over the mesh. Its
-parameter and buffer names are ``nn.BatchNorm2d``'s, so checkpoints do not
-change. In training a ``MeshBatchNorm2d`` and the ReLU after it run on the
-hand-written kernels BN1-BN4 (``ops/batchnorm.py``, ``_BatchNormReLU``), as
-does ``fused_block``'s BatchNorm; eval mode, and the default model on one
-rank, stay on cuDNN's BatchNorm.
+the BatchNorm statistics are global over the group's ranks, as the JAX
+BatchNorm's are over the mesh: the kernels' sums are all-reduced before the
+statistics are formed from them.
 
 Built with ``spatial_group``, a ``SpatialGroup`` (``ops/halo.py``) of more
 than one rank, the model runs on a height stripe of each image, as the JAX
@@ -57,7 +57,7 @@ the card):
   (``_ConcatConv``). The weight stays one full-width parameter.
 - ``fused_block``: each training conv3x3 -> batch-stat BatchNorm -> ReLU
   is one autograd function (``_FusedConvBNReLU``) that saves only the
-  pre-BatchNorm output, the input, the (C,) statistics and the affine, and
+  pre-BatchNorm output, the input, the statistics and beta, and
   recomputes the ReLU mask and the normalised values in its backward. Not
   with ``skip_impl`` "split" or "hybrid", as in the JAX package.
 - ``remat``: each ConvBlock is recomputed in the backward
@@ -84,116 +84,83 @@ from ..ops.halo import SpatialGroup
 from ..ops.pool import max_pool_2x2
 
 
-def _moments(total: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean, var, n) from BN1's (2C + 1) layout (the per-channel sums, the
-    sums of squares, the count); var = E[x^2] - E[x]^2."""
-    n = total[2 * c]
-    mean = total[:c] / n
-    return mean, total[c : 2 * c] / n - mean * mean, n
-
-
-@torch.no_grad()
-def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
-                    n: torch.Tensor) -> None:
-    """nn.BatchNorm2d's running update from batch statistics: the biased
-    ``var`` of ``n`` elements goes in unbiased."""
-    bn.num_batches_tracked.add_(1)
-    unbiased = var * (n / (n - 1.0).clamp(min=1.0))
-    m = bn.momentum
-    bn.running_mean.mul_(1.0 - m).add_(m * mean)
-    bn.running_var.mul_(1.0 - m).add_(m * unbiased)
-
-
 _STATS_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _scale(var: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
-    """gamma / sqrt(var + eps): BN2's per-channel scale, computed the same
-    way in the forward and the backward."""
-    return torch.rsqrt(var + eps) * gamma
-
-
-def _bn_forward(z, gamma, beta, eps, stats_dtype, group, relu: bool):
+def _bn_forward(z, gamma, beta, running, eps, momentum, bf16_stats, group, relu: bool):
     """Training BatchNorm (+ ReLU) of channels_last ``z`` on BN1 and BN2:
-    (y, mean, var, n). With ``group`` the (2C + 1) sums are all-reduced, so
-    the statistics are the group's."""
-    z2 = batchnorm.rows(z)
-    total = batchnorm.bn_stats(z2, stats_dtype == torch.bfloat16)
-    if group is not None:
-        dist.all_reduce(total, group=group)
-    mean, var, n = _moments(total, z.shape[1])
-    y = batchnorm.bn_relu_fwd(z2, mean, _scale(var, gamma, eps), beta, relu)
-    return batchnorm.unrows(y, z), mean, var, n
+    (y, stats), stats = (mean, var, scale, n) as ``ops/batchnorm.py`` lays
+    them out. BN1's second pass forms them and updates the ``running``
+    buffers (running_mean, running_var, num_batches_tracked); with
+    ``group`` the (2C + 1) sums are all-reduced first, so the statistics
+    are the group's, and the epilogue runs alone on them."""
+    if group is None:
+        return batchnorm.bn_relu_forward(z, gamma, beta, *running, eps, momentum, bf16_stats,
+                                         relu)
+    total = batchnorm.bn_stats(z, bf16_stats)
+    dist.all_reduce(total, group=group)
+    stats = batchnorm.bn_moments(total, gamma, *running, eps, momentum)
+    return batchnorm.bn_relu_fwd(z, stats, beta, relu), stats
 
 
-def _bn_backward(dy, z, mean, var, gamma, beta, n, eps, group, relu: bool):
+def _bn_backward(dy, z, stats, beta, eps, group, relu: bool):
     """The textbook batch-statistic backward of ``_bn_forward`` on BN3 and
-    BN4 (JAX ``_fcbr_bwd``): (dz, dgamma, dbeta). With ``group`` the two (C,)
-    sums are all-reduced; dgamma and dbeta stay this rank's share, as
+    BN4 (JAX ``_fcbr_bwd``): (dz, dgamma, dbeta). BN3's second pass forms
+    BN4's coefficients and dgamma, dbeta; with ``group`` its two (C,) sums
+    are all-reduced first, and dgamma and dbeta stay this rank's share, as
     autograd's are for a weight used on this rank."""
-    c = z.shape[1]
-    inv = torch.rsqrt(var + eps)
-    scale = _scale(var, gamma, eps)
     # The incoming gradient's layout is autograd's; the kernels read rows.
-    dy2 = batchnorm.rows(dy.contiguous(memory_format=torch.channels_last))
-    z2 = batchnorm.rows(z)
-    local = batchnorm.bn_relu_bwd_sums(dy2, z2, mean, scale, beta, relu)
-    total = local
-    if group is not None:
+    dy = dy.contiguous(memory_format=torch.channels_last)
+    if group is None:
+        dz, coef = batchnorm.bn_relu_backward(dy, z, stats, beta, eps, relu)
+    else:
+        local = batchnorm.bn_relu_bwd_sums(dy, z, stats, beta, relu)
         total = local.clone()
         dist.all_reduce(total, group=group)
-    t1, t2 = _dz_coefficients(total, inv, scale, n)
-    dz = batchnorm.bn_relu_bwd_dx(dy2, z2, mean, scale, beta, t1, t2, relu)
-    return batchnorm.unrows(dz, z), local[c:] * inv, local[:c]
-
-
-def _dz_coefficients(total, inv, scale, n) -> tuple[torch.Tensor, torch.Tensor]:
-    """BN4's (C,) t1 and t2 from BN3's sums ``total`` (of dyp, then of
-    dyp * (z - mean)): dz = dyp * scale - t1 - (z - mean) * t2, with
-    dbeta = the first sum and dgamma = the second times inv."""
-    c = total.shape[0] // 2
-    dbeta, dgamma = total[:c], total[c:] * inv
-    return scale * (dbeta / n), scale * (inv * dgamma / n)
+        coef = batchnorm.bn_bwd_coefficients(total, local, stats, eps)
+        dz = batchnorm.bn_relu_bwd_dx(dy, z, stats, beta, coef, relu)
+    c = z.shape[1]
+    return dz, coef[c:2 * c], coef[:c]
 
 
 class _BatchNormReLU(torch.autograd.Function):
     """Training batch-statistic BatchNorm, and the ReLU after it if
-    ``relu``, on the four kernels of ``ops/batchnorm.py``: BN1, the
-    all-reduce of its sums over ``group``, BN2; backward BN3, the all-reduce
-    of its two (C,) sums, BN4. Returns the activation and the batch's
-    (mean, var, n) for the running update. It saves the BatchNorm input,
-    the (C,) statistics and the affine."""
+    ``relu``, on the kernels of ``ops/batchnorm.py``: BN1 (which updates the
+    ``running`` buffers), BN2; backward BN3, BN4; with ``group`` the
+    all-reduces of the sums and the epilogues between them. It saves the
+    BatchNorm input, the statistics and beta."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, stats_dtype, group, relu):
-        y, mean, var, n = _bn_forward(x, gamma, beta, eps, stats_dtype, group, relu)
-        ctx.save_for_backward(x, mean, var, gamma, beta, n)
+    def forward(ctx, x, gamma, beta, running_mean, running_var, num_batches_tracked, eps,
+                momentum, bf16_stats, group, relu):
+        y, stats = _bn_forward(x, gamma, beta, (running_mean, running_var, num_batches_tracked),
+                               eps, momentum, bf16_stats, group, relu)
+        ctx.save_for_backward(x, stats, beta)
         ctx.eps, ctx.group, ctx.relu = eps, group, relu
-        ctx.mark_non_differentiable(mean, var, n)
-        return y, mean, var, n
+        return y
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar, _dn):
-        x, mean, var, gamma, beta, n = ctx.saved_tensors
-        dx, dgamma, dbeta = _bn_backward(dy, x, mean, var, gamma, beta, n, ctx.eps,
-                                         ctx.group, ctx.relu)
-        return dx, dgamma, dbeta, None, None, None, None
+    def backward(ctx, dy):
+        x, stats, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = _bn_backward(dy, x, stats, beta, ctx.eps, ctx.group, ctx.relu)
+        return dx, dgamma, dbeta, None, None, None, None, None, None, None, None
 
 
 class MeshBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm whose training statistics are computed as the JAX BatchNorm
-    computes them (``stereo_depth_estimation_tpu/models/unet.py:64-79``): the
-    per-channel sum and sum of squares reduced in ``stats_dtype`` (the JAX
-    model's ``bn_stats_dtype``: float32 or bfloat16) and cast to float32,
-    var = E[x^2] - E[x]^2, normalised in float32 and returned in the input's
-    dtype. With ``group`` (several ranks) the sums and the element count are
-    all-reduced, so the statistics are global over the group, and the
-    unbiased factor n/(n-1) of the running variance takes the global n. Eval
-    mode uses the running statistics and no collective.
+    """The model's BatchNorm. Its training statistics are computed as the
+    JAX BatchNorm computes them (``stereo_depth_estimation_tpu/models/
+    unet.py:64-79``): the per-channel sum and sum of squares reduced in
+    ``stats_dtype`` (the JAX model's ``bn_stats_dtype``: float32 or
+    bfloat16) and cast to float32, var = E[x^2] - E[x]^2, normalised in
+    float32 and returned in the input's dtype. With ``group`` (several
+    ranks) the sums and the element count are all-reduced, so the statistics
+    are global over the group, and the unbiased factor n/(n-1) of the
+    running variance takes the global n. Eval mode is ``nn.BatchNorm2d``'s:
+    the running statistics, no collective.
 
-    In training it runs on the BatchNorm kernels (``_BatchNormReLU``), and
-    ``forward_relu`` takes the ReLU that follows it into them. The input
-    must be channels_last.
+    In training it runs on the BatchNorm kernels (``_BatchNormReLU``), which
+    also update the running buffers, and ``forward_relu`` takes the ReLU that
+    follows it into them. The input must be channels_last.
 
     Not ``nn.SyncBatchNorm``: it refuses CPU tensors and gathers with
     ``all_gather``, which gloo does not run on CUDA tensors; this module
@@ -205,7 +172,7 @@ class MeshBatchNorm2d(nn.BatchNorm2d):
             raise ValueError(f"bn_stats_dtype must be float32 or bfloat16, got {stats_dtype}")
         super().__init__(num_features)
         self.group = group
-        self.stats_dtype = stats_dtype
+        self.bf16_stats = stats_dtype == torch.bfloat16
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._train(x, relu=False) if self.training else super().forward(x)
@@ -215,16 +182,9 @@ class MeshBatchNorm2d(nn.BatchNorm2d):
         return self._train(x, relu=True) if self.training else F.relu(super().forward(x))
 
     def _train(self, x: torch.Tensor, relu: bool) -> torch.Tensor:
-        y, mean, var, n = _BatchNormReLU.apply(x, self.weight, self.bias, self.eps,
-                                               self.stats_dtype, self.group, relu)
-        _update_running(self, mean, var, n)
-        return y
-
-
-def _batch_norm(channels: int, group, stats_dtype: torch.dtype) -> nn.BatchNorm2d:
-    if group is not None or stats_dtype != torch.float32:
-        return MeshBatchNorm2d(channels, group, stats_dtype)
-    return nn.BatchNorm2d(channels)
+        return _BatchNormReLU.apply(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var, self.num_batches_tracked, self.eps,
+                                    self.momentum, self.bf16_stats, self.group, relu)
 
 
 class HaloConv2d(nn.Conv2d):
@@ -297,32 +257,33 @@ class _ConcatConv(torch.autograd.Function):
 
 class _FusedConvBNReLU(torch.autograd.Function):
     """Training conv3x3 -> batch-stat BatchNorm -> ReLU: JAX
-    ``_fused_conv_bn_relu``. Returns the activation and the batch's (mean,
-    var, n) for the running update. It saves only the pre-BatchNorm output
-    ``z``, the input, the weight, the (C,) statistics and the affine; the
-    backward recomputes the ReLU mask and the centred ``z`` and feeds one
-    gradient to the convolution's data and filter gradients. The BatchNorm
-    and the ReLU run on the kernels of ``ops/batchnorm.py`` (``_bn_forward``,
-    ``_bn_backward``). With ``group`` the statistics' sums, and in the
-    backward the two (C,) gradient sums, are all-reduced (the weight and
-    bias gradients stay this rank's share, as ``MeshBatchNorm2d``'s do)."""
+    ``_fused_conv_bn_relu``. It saves only the pre-BatchNorm output ``z``,
+    the input, the weight, the statistics and beta; the backward recomputes
+    the ReLU mask and the centred ``z`` and feeds one gradient to the
+    convolution's data and filter gradients. The BatchNorm and the ReLU run
+    on the kernels of ``ops/batchnorm.py`` (``_bn_forward``, which updates
+    the ``running`` buffers, and ``_bn_backward``). With ``group`` the
+    statistics' sums, and in the backward the two (C,) gradient sums, are
+    all-reduced (the weight and bias gradients stay this rank's share, as
+    ``MeshBatchNorm2d``'s do)."""
 
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta, padding, eps, stats_dtype, group):
+    def forward(ctx, x, weight, gamma, beta, running_mean, running_var, num_batches_tracked,
+                padding, eps, momentum, bf16_stats, group):
         z = F.conv2d(x, weight.to(x.dtype), padding=padding)
-        y, mean, var, n = _bn_forward(z, gamma, beta, eps, stats_dtype, group, relu=True)
-        ctx.save_for_backward(x, weight, z, mean, var, gamma, beta, n)
+        y, stats = _bn_forward(z, gamma, beta, (running_mean, running_var, num_batches_tracked),
+                               eps, momentum, bf16_stats, group, relu=True)
+        ctx.save_for_backward(x, weight, z, stats, beta)
         ctx.padding, ctx.eps, ctx.group = padding, eps, group
-        ctx.mark_non_differentiable(mean, var, n)
-        return y, mean, var, n
+        return y
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar, _dn):
-        x, weight, z, mean, var, gamma, beta, n = ctx.saved_tensors
-        dz, dgamma, dbeta = _bn_backward(dy, z, mean, var, gamma, beta, n, ctx.eps,
-                                         ctx.group, relu=True)
+    def backward(ctx, dy):
+        x, weight, z, stats, beta = ctx.saved_tensors
+        dz, dgamma, dbeta = _bn_backward(dy, z, stats, beta, ctx.eps, ctx.group, relu=True)
         dx, dw = _conv_grads(dz, x, weight.to(x.dtype), ctx.padding)
-        return dx, dw.to(weight.dtype), dgamma, dbeta, None, None, None, None
+        return (dx, dw.to(weight.dtype), dgamma, dbeta, None, None, None, None, None, None,
+                None, None)
 
 
 class ConvBlock(nn.Module):
@@ -345,14 +306,13 @@ class ConvBlock(nn.Module):
         group = bn_group if bn_group is not None and dist.get_world_size(bn_group) > 1 else None
         self.block = nn.Sequential(
             _conv3x3(in_channels, out_channels, spatial_group),
-            _batch_norm(out_channels, group, bn_stats_dtype),
+            MeshBatchNorm2d(out_channels, group, bn_stats_dtype),
             nn.ReLU(inplace=True),
             _conv3x3(out_channels, out_channels, spatial_group),
-            _batch_norm(out_channels, group, bn_stats_dtype),
+            MeshBatchNorm2d(out_channels, group, bn_stats_dtype),
             nn.ReLU(inplace=True),
         )
         self.group = group
-        self.bn_stats_dtype = bn_stats_dtype
         self.fused = fused
         self.skip_impl = skip_impl
 
@@ -361,11 +321,10 @@ class ConvBlock(nn.Module):
             x, skip = torch.cat([x, skip], dim=1), None
         if self.fused and self.training:
             for conv, bn in ((self.block[0], self.block[1]), (self.block[3], self.block[4])):
-                y, mean, var, n = _FusedConvBNReLU.apply(
+                x = _FusedConvBNReLU.apply(
                     _padded(conv, x).to(_compute_dtype(x)), conv.weight, bn.weight, bn.bias,
-                    conv.padding, bn.eps, self.bn_stats_dtype, self.group)
-                _update_running(bn, mean, var, n)
-                x = y
+                    bn.running_mean, bn.running_var, bn.num_batches_tracked, conv.padding,
+                    bn.eps, bn.momentum, bn.bf16_stats, self.group)
             return x
         conv0 = self.block[0]
         if skip is None:
@@ -382,10 +341,10 @@ class ConvBlock(nn.Module):
         return _bn_relu(self.block[4], self.block[5], self.block[3](y))
 
 
-def _bn_relu(bn: nn.BatchNorm2d, relu: nn.ReLU, z: torch.Tensor) -> torch.Tensor:
-    """relu(bn(z)); a ``MeshBatchNorm2d`` in training takes the ReLU into its
-    kernels (``forward_relu``), and the ``nn.ReLU`` module is skipped."""
-    if isinstance(bn, MeshBatchNorm2d) and bn.training:
+def _bn_relu(bn: MeshBatchNorm2d, relu: nn.ReLU, z: torch.Tensor) -> torch.Tensor:
+    """relu(bn(z)); in training the BatchNorm takes the ReLU into its kernels
+    (``forward_relu``), and the ``nn.ReLU`` module is skipped."""
+    if bn.training:
         return bn.forward_relu(z)
     return relu(bn(z))
 

@@ -167,12 +167,21 @@ def test_kernel_launcher_refuses_cpu_tensors() -> None:
 
 def _bn_cases():
     x, dy = torch.randn(12, 8), torch.randn(12, 8)
-    v = [torch.randn(8) for _ in range(5)]
+    gamma, beta, sums = torch.rand(8) + 0.5, torch.randn(8), torch.randn(16)
+    stats = torch.cat([torch.randn(8), torch.rand(8), torch.rand(8), torch.tensor([12.0])])
+
+    def running():
+        return torch.zeros(8), torch.ones(8), torch.zeros((), dtype=torch.long)
+
     return {
         "bn_stats": (x, True),
-        "bn_relu_fwd": (x, *v[:3], True),
-        "bn_relu_bwd_sums": (dy, x, *v[:3], True),
-        "bn_relu_bwd_dx": (dy, x, *v, True),
+        "bn_relu_fwd": (x, stats, beta, True),
+        "bn_relu_bwd_sums": (dy, x, stats, beta, True),
+        "bn_relu_bwd_dx": (dy, x, stats, beta, torch.randn(32), True),
+        "bn_moments": (batchnorm.bn_stats_plain(x, False), gamma, *running(), 1e-5, 0.1),
+        "bn_bwd_coefficients": (2 * sums, sums, stats, 1e-5),
+        "bn_relu_forward": (x, gamma, beta, *running(), 1e-5, 0.1, False, True),
+        "bn_relu_backward": (dy, x, stats, beta, 1e-5, True),
     }
 
 
@@ -186,7 +195,9 @@ def test_batchnorm_launchers_refuse_cpu_tensors(name) -> None:
     assert launcher.launches == before
     # Only the custom op sends CPU tensors to the plain version.
     out = getattr(batchnorm, name)(*args)
-    assert torch.equal(out, getattr(batchnorm, f"{name}_plain")(*args))
+    want = getattr(batchnorm, f"{name}_plain")(*args)
+    assert all(torch.equal(a, b) for a, b in zip(*((t,) if isinstance(t, torch.Tensor) else t
+                                                   for t in (out, want))))
     assert launcher.launches == before
 
 
