@@ -2,33 +2,40 @@
 them (``tests/test_bench_faults.py`` on the CPU; ``tools/readings.py`` on the
 card, where a fault's reading can set a training number's upper limit).
 
+A traffic kind lists the faults its cells can have (``FAULTS``) and names
+the model class whose forward ``altered`` patches (``MODEL_CLASS``).
+
 - ``unchanged``: AdamW's step does nothing, so the state stays as it was.
 - ``half_batch``: the step (or the prediction) sees half of its batch; a
   train step takes the mean over the rest, a prediction repeats it.
-- ``altered``: the model's disparity comes out 1 pixel high, where it is
-  produced.
+- ``altered``: the model's output (its first, where it returns several)
+  comes out 1 higher, where it is produced.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 
 import torch
 
-FAULTS = {"train_device_resident": ("unchanged", "half_batch", "altered"),
-          "predict_batches": ("half_batch", "altered"),
-          "live_frames": ("altered",)}
+NAMES = ("unchanged", "half_batch", "altered")
+
+
+def _model_class(path: str) -> type:
+    module, _, name = path.rpartition(".")
+    return getattr(importlib.import_module(module), name)
 
 
 @contextlib.contextmanager
-def planted(name: str):
-    from stereo_depth_estimation_tpu_torch.models.unet import StereoUNet
-    from stereo_depth_estimation_tpu_torch.parallel import train_step
-
+def planted(name: str, kind):
+    """``name`` planted for a cell of ``kind``, a traffic kind's module."""
     patches = []
     if name == "unchanged":
         patches.append((torch.optim.AdamW, "step", lambda self, closure=None: None))
     elif name == "half_batch":
+        from stereo_depth_estimation_tpu_torch.parallel import train_step
+
         gather = train_step.DeviceDataTrainStep.gather
 
         def half_gather(self, state):
@@ -51,15 +58,16 @@ def planted(name: str):
         patches += [(train_step.DeviceDataTrainStep, "gather", half_gather),
                     (train_step, "make_predict_fn", half_predict_fn)]
     elif name == "altered":
-        forward = StereoUNet.forward
+        model = _model_class(kind.MODEL_CLASS)
+        forward = model.forward
 
-        def altered(self, x, return_uncertainty=False):
-            out = forward(self, x, return_uncertainty)
-            if return_uncertainty:
-                return out[0] + 1.0, out[1]
+        def altered(self, *args, **kwargs):
+            out = forward(self, *args, **kwargs)
+            if isinstance(out, tuple):
+                return (out[0] + 1.0, *out[1:])
             return out + 1.0
 
-        patches.append((StereoUNet, "forward", altered))
+        patches.append((model, "forward", altered))
     else:
         raise ValueError(f"unknown fault {name!r}")
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]

@@ -1,0 +1,6 @@
+"""``pretrain.optimizer_ms``: ``train.optimizer_ms``, read in the cells whose rate is
+``pretrain_pairs_per_s``."""
+
+from benchmark import spec
+
+read = spec.reader("train.optimizer_ms")

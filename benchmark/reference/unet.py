@@ -170,3 +170,16 @@ def conv_macs(base: int, height: int, width: int, in_channels: int = 6) -> int:
         macs += pixels * 4 * (base << k) * (base << (k - 1))
     macs += 2 * height * width * base  # the two 1x1 heads
     return macs
+
+
+def parameter_shapes(cfg: dict) -> dict[str, tuple[int, ...]]:
+    """Every parameter's shape for a configuration file of this model (a
+    reference module's part of the interface a configuration's
+    ``reference`` key names)."""
+    return leaf_shapes(cfg["base_channels"], cfg["in_channels"])
+
+
+def forward_flops(cfg: dict) -> int:
+    """FLOPs of one forward of one pair at the configuration's size, 2 a
+    multiply-add."""
+    return 2 * conv_macs(cfg["base_channels"], cfg["height"], cfg["width"], cfg["in_channels"])

@@ -1,30 +1,31 @@
-"""Tiny cells for the benchmark's CPU tests: the cells' own configurations,
-mixes and limits, cut to base 4 at 32x48 and a handful of pairs."""
+"""Tiny cells for the benchmark's CPU tests: every cell of BENCHMARK.json,
+with its configuration cut to the file's ``tiny`` sizes and its mix to its
+kind's ``TINY_MIX``."""
 
 from __future__ import annotations
 
 import pytest
 
 from benchmark import harness, spec
-from benchmark.reference.unet import conv_macs
 
-CELLS = ("train-240x320-b128", "live-240x320-b1", "train-96x128-b256", "predict-240x320-b30")
-TINY_MIX = {
-    "train_device_resident": {"batch": 4, "payload_pairs": 24, "trace_units": 1},
-    "predict_batches": {"batch": 3, "distinct_batches": 2, "checked_batches": 2},
-    "live_frames": {"distinct_frames": 3, "checked_frames": 3, "warmup_frames": 1},
-}
+BENCH = spec.benchmark()
+CELLS = tuple(w["name"] for w in BENCH["workloads"])
+
+
+def kind_of(cell: str):
+    return spec.kind(spec.mix(spec.cell(BENCH, cell)["traffic"])["kind"])
+
+
+def tiny_config(cfg: dict) -> dict:
+    """The configuration at its ``tiny`` sizes. The train step runs in
+    float32 here, where the port and the reference agree to round-off, so a
+    cell's limits judge only what a test plants."""
+    return dict(cfg, **cfg["tiny"], compute_dtype=dict(cfg["compute_dtype"], train="float32"))
 
 
 def tiny_parts(cell: str) -> tuple[dict, dict, dict, dict]:
-    """The cell's parts at base 4, 32x48. The train step runs in float32
-    here, where the port and the reference agree to round-off, so the
-    cell's limits judge only what a test plants."""
-    entry, cfg, mix, limits = harness.parts(spec.benchmark(), cell)
-    cfg = dict(cfg, base_channels=4, height=32, width=48,
-               forward_flops=2 * conv_macs(4, 32, 48),
-               compute_dtype=dict(cfg["compute_dtype"], train="float32"))
-    return entry, cfg, dict(mix, **TINY_MIX[mix["kind"]]), limits
+    entry, cfg, mix, limits = harness.parts(BENCH, cell)
+    return entry, tiny_config(cfg), dict(mix, **spec.kind(mix["kind"]).TINY_MIX), limits
 
 
 @pytest.fixture(params=CELLS)

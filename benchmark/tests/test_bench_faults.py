@@ -11,9 +11,7 @@ import torch
 
 from benchmark import compare, faults, harness, spec
 
-from .conftest import CELLS, tiny_parts
-
-BENCH = spec.benchmark()
+from .conftest import BENCH, CELLS, kind_of, tiny_parts
 
 
 def _run(cell: str) -> dict:
@@ -29,11 +27,9 @@ def test_a_sound_run_is_correct(cell_name) -> None:
     assert set(result["metrics"]) == {m["name"] for m in spec.end_to_end(BENCH, cell_name)}
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
-                                        for f in faults.FAULTS[spec.mix(
-                                            spec.cell(BENCH, c)["traffic"])["kind"]]])
+@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in kind_of(c).FAULTS])
 def test_a_planted_fault_is_not_correct(cell, fault) -> None:
-    with faults.planted(fault):
+    with faults.planted(fault, kind_of(cell)):
         result = _run(cell)
     assert not result["correct"], result["checks"]
 

@@ -26,8 +26,8 @@ def test_a_run_loads_no_banned_module() -> None:
     """Everything a run imports, in a fresh process."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
-        "from benchmark import harness, faults, readers, guard\n"
-        "from benchmark.traffic import train_device_resident, live_frames, predict_batches\n"
+        "from benchmark import harness, faults, readers, guard, spec\n"
+        "for w in spec.benchmark()['workloads']: spec.kind(spec.mix(w['traffic'])['kind'])\n"
         "import stereo_depth_estimation_tpu_torch.live.depth_live_dl\n"
         "import stereo_depth_estimation_tpu_torch.parallel.train_step\n"
         "print(guard.banned_modules())\n" % str(spec.ROOT))
@@ -38,8 +38,9 @@ def test_a_run_loads_no_banned_module() -> None:
 
 
 def test_run_refuses_without_a_card_and_prints_no_result(tmp_path) -> None:
+    cell = spec.benchmark()["workloads"][0]["name"]
     out = subprocess.run(
-        [sys.executable, "benchmark/run.py", "--workload", "train-240x320-b128",
+        [sys.executable, "benchmark/run.py", "--workload", cell,
          "--seed", str(2**33 + 1), "--seconds", "1", "--trace", "0"],
         cwd=spec.ROOT, capture_output=True, text=True, timeout=300,
         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "CUDA_VISIBLE_DEVICES": ""})

@@ -7,13 +7,24 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import compare, inputs
+from benchmark import compare, inputs, spec
 from benchmark.reference import augment, frame, unet
 
-from .conftest import tiny_parts
+from .conftest import BENCH, CELLS, tiny_config, tiny_parts
 
-CFG = tiny_parts("live-240x320-b1")[1]
-AUG = tiny_parts("train-240x320-b128")[2]["augment"]
+CFG = tiny_config(next(cfg for cfg in (spec.config(BENCH, c["name"]) for c in BENCH["configs"])
+                       if cfg["reference"] == "unet"))
+AUG = next(m["augment"] for m in (spec.mix(w["traffic"]) for w in BENCH["workloads"])
+           if "augment" in m)
+
+
+def _trains_a_unet(cell: str) -> bool:
+    """Set-up runs checked train steps of a StereoUNet."""
+    _, cfg, mix, _ = tiny_parts(cell)
+    return cfg["reference"] == "unet" and "checked_steps" in mix
+
+
+TRAIN_CELLS = [c for c in CELLS if _trains_a_unet(c)]
 
 
 def _port_model(sd, train_dtype=torch.float32):
@@ -87,11 +98,10 @@ def test_the_reference_prediction_is_make_predict_fns() -> None:
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
-def test_the_reference_train_steps_follow_the_ports_in_float32() -> None:
-    from benchmark.traffic.train_device_resident import Cell
-
-    _, cfg, mix, _ = tiny_parts("train-240x320-b128")
-    cell = Cell(cfg, mix, 2**32 + 3, torch.device("cpu"))
+@pytest.mark.parametrize("cell_name", TRAIN_CELLS)
+def test_the_reference_train_steps_follow_the_ports_in_float32(cell_name) -> None:
+    _, cfg, mix, _ = tiny_parts(cell_name)
+    cell = spec.kind(mix["kind"]).Cell(cfg, mix, 2**32 + 3, torch.device("cpu"))
     cell.release()
     numbers = cell.numbers()
     assert numbers["loss_gap"] < 1e-4

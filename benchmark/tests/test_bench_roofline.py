@@ -38,11 +38,11 @@ def _hooked_macs(model: nn.Module, x: torch.Tensor) -> int:
 def test_forward_flops_of_the_base_32_model_at_240x320_match_hooks_on_the_port() -> None:
     from stereo_depth_estimation_tpu_torch.models.unet import StereoUNet, count_params
 
+    cfg = spec.config(BENCH, "stereounet-b32-240x320")
     model = StereoUNet(base_channels=32, device="cpu").eval()
-    assert count_params(model) == 7763938
+    assert count_params(model) == cfg["parameters"]
     macs = _hooked_macs(model, torch.rand(1, 240, 320, 6))
     assert macs == conv_macs(32, 240, 320) == 14_214_758_400
-    cfg = spec.config(BENCH, "stereounet-b32-240x320")
     assert roofline.forward_flops(cfg) == cfg["forward_flops"] == 2 * macs
     assert round(cfg["forward_flops"] / 1e9, 2) == 28.43
 

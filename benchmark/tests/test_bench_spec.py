@@ -3,6 +3,7 @@ and every name and shape keeps to the format BENCHMARK.json follows."""
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -10,16 +11,11 @@ import re
 import pytest
 
 from benchmark import faults, spec
-from benchmark.reference.unet import leaf_shapes
 
-from .conftest import CELLS
+from .conftest import BENCH
 
-BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-NUMBERS = {"train_device_resident": {"loss_gap", "grad_gap", "change_gap", "grad_diff_median"},
-           "live_frames": {"disp_gap", "logvar_gap", "view_gap"},
-           "predict_batches": {"disp_gap", "logvar_gap"}}
 
 
 def test_top_level_keys_and_command() -> None:
@@ -31,9 +27,13 @@ def test_top_level_keys_and_command() -> None:
     assert len((spec.ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
 
-def test_the_cells_are_the_issues_in_order() -> None:
-    assert tuple(w["name"] for w in BENCH["workloads"]) == CELLS
-    assert all(w["chips"] == 1 for w in BENCH["workloads"])
+def test_cell_names_are_unique_and_few_cells_take_four_chips() -> None:
+    names = [w["name"] for w in BENCH["workloads"]]
+    assert 1 <= len(names) <= 24 and len(set(names)) == len(names)
+    assert all(NAME.match(n) for n in names)
+    assert all(w["chips"] in (1, 4) for w in BENCH["workloads"])
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(names) // 4)
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(set(pairs)) == len(pairs)
 
@@ -44,12 +44,15 @@ def test_a_cell_finds_its_parts_by_name(entry) -> None:
     mix = spec.mix(entry["traffic"])
     kind = spec.kind(mix["kind"])
     assert hasattr(kind, "Cell")
-    assert mix["kind"] in faults.FAULTS
+    assert kind.FAULTS and set(kind.FAULTS) <= set(faults.NAMES)
+    assert set(kind.TINY_MIX) <= set(mix)  # a tiny mix cuts the mix's own keys
+    assert isinstance(kind.WINDOW, bool) and "." in kind.MODEL_CLASS  # module.Class
+    assert kind.SPAN_UNIT is None or NAME.match(kind.SPAN_UNIT)
     limits = spec.limits(entry["name"])
-    assert set(limits) == NUMBERS[mix["kind"]]
+    assert set(limits) == set(kind.NUMBERS)
     for number in limits.values():
         assert 0 < number["limit"] < math.inf
-    assert cfg["name"] == entry["config"] and cfg["reduced"] == []
+    assert cfg["name"] == entry["config"]
     assert len(entry["why"]) <= 200 and "\n" not in entry["why"]
     ends = {m["name"] for m in spec.end_to_end(BENCH, entry["name"])}
     assert "setup_s" in ends and len(ends) >= 2
@@ -58,11 +61,17 @@ def test_a_cell_finds_its_parts_by_name(entry) -> None:
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_a_config_is_the_published_width(entry) -> None:
+    """The parameters and FLOPs the file states are its reference's own, at
+    the file's sizes and at its tiny cut."""
     cfg = spec.load_json(spec.ROOT / entry["file"])
     assert entry["file"].startswith("benchmark/configs/")
-    assert entry["reduced"] == cfg["reduced"] == []
-    assert cfg["base_channels"] == 32 and cfg["in_channels"] == 6
-    assert sum(math.prod(s) for s in leaf_shapes(32).values()) == cfg["parameters"] == 7763938
+    assert entry["reduced"] == cfg["reduced"]
+    ref = importlib.import_module(f"benchmark.reference.{cfg['reference']}")
+    shapes = ref.parameter_shapes(cfg)
+    assert sum(math.prod(s) for s in shapes.values()) == cfg["parameters"]
+    assert ref.forward_flops(cfg) == cfg["forward_flops"]
+    assert set(cfg["tiny"]) - {"forward_flops"} <= set(cfg)
+    assert ref.forward_flops(dict(cfg, **cfg["tiny"])) == cfg["tiny"]["forward_flops"]
     assert len(entry["source"]) <= 200
 
 
@@ -96,14 +105,18 @@ def test_a_roofline_or_mfu_is_a_percent() -> None:
             assert m["unit"] == "%"
 
 
-def test_per_layer_reports_follow_the_workloads_key() -> None:
-    live = {m["name"] for m in spec.per_layer(BENCH, "live-240x320-b1")}
-    assert live == {m["name"] for m in BENCH["per_layer"] if m["name"].startswith("live.")}
+@pytest.mark.parametrize("moved", [m["name"] for m in BENCH["end_to_end"]][1:])
+def test_per_layer_reports_follow_the_workloads_key(moved) -> None:
+    """A listed metric goes to the cells it lists; one without a list to
+    every cell that reports the end-to-end metric it moves."""
     fake = dict(BENCH, per_layer=BENCH["per_layer"] + [
         {"name": "x", "unit": "ms", "better": "lower", "source": "device_trace",
-         "layer": "device", "moves": "train_pairs_per_s"}])
-    assert "x" in {m["name"] for m in spec.per_layer(fake, "train-96x128-b256")}
-    assert "x" not in {m["name"] for m in spec.per_layer(fake, "live-240x320-b1")}
+         "layer": "device", "moves": moved}])
+    for w in BENCH["workloads"]:
+        got = {m["name"] for m in spec.per_layer(fake, w["name"])}
+        listed = {m["name"] for m in BENCH["per_layer"] if w["name"] in m["workloads"]}
+        moves = moved in {m["name"] for m in spec.end_to_end(BENCH, w["name"])}
+        assert got == listed | ({"x"} if moves else set()), w["name"]
 
 
 def test_every_file_under_the_benchmark_is_named_from_name_characters() -> None:

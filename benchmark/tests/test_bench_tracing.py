@@ -26,6 +26,22 @@ def test_busy_time_is_the_union_and_gaps_go_to_the_innermost_host_op() -> None:
     assert rec["breakdown"]["device_ops"][0][0] == "sm90_xmma_fprop_bf16"
 
 
+def test_every_device_operation_keeps_its_seconds_and_count_by_name() -> None:
+    """All names, not only the breakdown's ten longest, so a reader can sum a
+    later model's kernels by name."""
+    names = [f"kernel_{k}" for k in range(12)]
+    device = [(100.0 * k, 100.0 * k + 10 + k, n) for k, n in enumerate(names)]
+    device += [(2000.0, 2030.0, "kernel_3"), (2100.0, 2101.0, "triton_poi_fused_0")]
+    rec = tracing.reduce(device, [], (0.0, 2200.0, "ProfilerStep#1"), 1.0, 1)
+    assert rec["names_n"] == {**{n: 1 for n in names}, "kernel_3": 2, "triton_poi_fused_0": 1}
+    assert rec["names_s"]["kernel_3"] == pytest.approx(43e-6)
+    assert rec["names_s"]["kernel_0"] == pytest.approx(10e-6)
+    assert sum(rec["names_s"].values()) == pytest.approx(sum(rec["groups_s"].values()))
+    assert sum(rec["names_n"].values()) == sum(rec["groups_n"].values()) == 14
+    assert len(rec["breakdown"]["device_ops"]) == 10
+    assert rec["breakdown"]["device_ops"][0] == ["kernel_3", rec["names_s"]["kernel_3"]]
+
+
 def test_kernel_groups_name_the_ports_kernels() -> None:
     assert tracing.group_of("augment_kernel<true>") == "K1 augment"
     assert tracing.group_of("gray_means_kernel") == "augment gray means"
@@ -63,3 +79,25 @@ def test_a_reader_with_nothing_to_read_returns_none() -> None:
     assert spec.reader("train.optimizer_ms")(rec) is None
     rec["groups_n"].pop("K1 augment")
     assert spec.reader("train.k1_roofline")(rec) is None
+
+
+PRETRAIN = [m["name"] for m in BENCH["per_layer"] if m["name"].startswith("pretrain.")]
+
+
+@pytest.mark.parametrize("name", PRETRAIN)
+def test_a_pretrain_reader_reads_what_its_train_twin_reads(monkeypatch, name) -> None:
+    """The train-96x128 cell reports its rate as ``pretrain_pairs_per_s``,
+    and each ``pretrain.*`` reader reads its stage as ``train.*`` does, at
+    that rate: on a device record and on a span store."""
+    from benchmark import program_spans
+
+    from .test_bench_program_spans import _train_store
+
+    twin = "train." + name.split(".", 1)[1]
+    rec = _train_record(8)
+    rec["groups_s"].update({"BN1-BN4": 0.01, "optimizer": 0.0006})
+    rate = rec["window"].pop("train_pairs_per_s")
+    monkeypatch.setattr(program_spans, "store", _train_store)
+    got = spec.reader(name)(dict(rec, window={"pretrain_pairs_per_s": rate}))
+    want = spec.reader(twin)(dict(rec, window={"train_pairs_per_s": rate}))
+    assert got is not None and got == pytest.approx(want)

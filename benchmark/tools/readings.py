@@ -4,11 +4,12 @@
         [--control-seeds 1,2,3] [--fault-seeds 1,2,3] [--seconds 2]
 
 For every seed, the program's numbers against the float32 reference after
-set-up and a window of ``--seconds`` at the cell's own load (none for
-training); for each control seed, the reference one precision below the
+set-up and a window of ``--seconds`` at the cell's own load (none where
+the kind's ``WINDOW`` is false: training, whose checked steps are
+set-up's); for each control seed, the reference one precision below the
 configuration's in the program's place; for each fault seed, the program
-with each of the kind's faults planted (``faults.py``). One JSON line each,
-on standard output.
+with each of the kind's faults planted (its ``FAULTS``, ``faults.py``). One
+JSON line each, on standard output.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def readings(cell_name: str, seed: int, seconds: float, device, control: bool = 
     _, cfg, mix, _ = harness.parts(spec.benchmark(), cell_name)
     kind = spec.kind(mix["kind"])
     t0 = time.perf_counter()
-    with faults.planted(fault) if fault else contextlib.nullcontext():
+    with faults.planted(fault, kind) if fault else contextlib.nullcontext():
         cell = kind.Cell(cfg, mix, seed, device)
         if seconds > 0:
             cell.window(seconds)
@@ -93,17 +94,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from benchmark import faults, harness, spec
+    from benchmark import harness, spec
 
     device = torch.device(args.device)
     _, _, mix, _ = harness.parts(spec.benchmark(), args.workload)
-    seconds = 0.0 if mix["kind"] == "train_device_resident" else args.seconds
+    kind = spec.kind(mix["kind"])
+    seconds = args.seconds if kind.WINDOW else 0.0
     for seed in args.seeds:
         print(json.dumps(readings(args.workload, seed, seconds, device,
                                   control=seed in args.control_seeds, detail=args.detail)),
               flush=True)
     for seed in args.fault_seeds:
-        for fault in faults.FAULTS[mix["kind"]]:
+        for fault in kind.FAULTS:
             print(json.dumps(readings(args.workload, seed, seconds, device, fault=fault)),
                   flush=True)
     return 0

@@ -34,7 +34,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-UNITS = {"train_device_resident": "train.step", "live_frames": "live.frame"}
 
 
 def off_ns_per_span(n: int = 200_000) -> tuple[float, float]:
@@ -118,7 +117,7 @@ def check(cell_name: str, seed: int, seconds: float, device=None) -> dict:
     off_ns = off_ns_per_span()
     cell.window(seconds)
     on_us = on_us_per_span()
-    units, unit = mix["trace_units"], UNITS[mix["kind"]]
+    units, unit = mix["trace_units"], spec.kind(mix["kind"]).SPAN_UNIT
     stretches, store = [], None
     for spans_on in (True, False, True, False):
         events, host_s, rec, device_rows = traced(cell, units, spans_on)

@@ -81,8 +81,9 @@ def split_events(events):
 
 def reduce(device, host, step, host_s: float, units: int) -> dict:
     """Busy and window seconds, device seconds and counts by group and by
-    name, and the idle gaps by what the host was doing (innermost host
-    operation open at each gap's middle)."""
+    name (every name, so a reader can sum a later model's kernels by name
+    without a new group), and the idle gaps by what the host was doing
+    (innermost host operation open at each gap's middle)."""
     lo, hi = (step[0], step[1]) if step else (
         min(s for s, _, _ in device), max(e for _, e, _ in device))
     spans = sorted((max(s, lo), min(e, hi), n) for s, e, n in device if e > lo and s < hi)
@@ -97,12 +98,11 @@ def reduce(device, host, step, host_s: float, units: int) -> dict:
     if hi > cursor:
         gaps.append((cursor, hi))
     by_group: dict[str, list] = {}
-    by_name: dict[str, float] = {}
+    by_name: dict[str, list] = {}
     for s, e, n in device:
-        g = by_group.setdefault(group_of(n), [0.0, 0])
-        g[0] += (e - s) * 1e-6
-        g[1] += 1
-        by_name[n] = by_name.get(n, 0.0) + (e - s) * 1e-6
+        for k in (by_group.setdefault(group_of(n), [0.0, 0]), by_name.setdefault(n, [0.0, 0])):
+            k[0] += (e - s) * 1e-6
+            k[1] += 1
     host = sorted(host)
     starts = [s for s, _, _ in host]
     idle: dict[str, float] = {}
@@ -118,13 +118,16 @@ def reduce(device, host, step, host_s: float, units: int) -> dict:
                 break
         idle[label] = idle.get(label, 0.0) + (b - a) * 1e-6
     window_s = (hi - lo) * 1e-6 if step else host_s
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    names_s = {n: v[0] for n, v in by_name.items()}
+    top = sorted(names_s.items(), key=lambda kv: -kv[1])[:10]
     return {
         "units": units,
         "busy_s": busy_us * 1e-6,
         "window_s": window_s,
         "groups_s": {g: v[0] for g, v in by_group.items()},
         "groups_n": {g: v[1] for g, v in by_group.items()},
+        "names_s": names_s,
+        "names_n": {n: v[1] for n, v in by_name.items()},
         "breakdown": {
             "device_ops": [[n[:160], s] for n, s in top],
             "idle_gaps": [[n[:160], s] for n, s in sorted(idle.items(), key=lambda kv: -kv[1])[:10]],

@@ -21,6 +21,14 @@ from ..reference import frame as reference_frame
 from ..spec import HERE
 from .common import Phases, Sampler, closed_loop, strict_f32, sync
 
+FAULTS = ("altered",)
+NUMBERS = ("disp_gap", "logvar_gap", "view_gap")
+TINY_MIX = {"distinct_frames": 3, "checked_frames": 3, "warmup_frames": 1}
+WINDOW = True
+MODEL_CLASS = "stereo_depth_estimation_tpu_torch.models.unet.StereoUNet"
+SPAN_UNIT = "live.frame"
+
+
 class Cell:
     def __init__(self, cfg: dict, mix: dict, seed: int, device: torch.device) -> None:
         from stereo_depth_estimation_tpu_torch.live.depth_live_dl import LiveDepthEngine

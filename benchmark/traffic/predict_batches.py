@@ -18,6 +18,14 @@ from .. import compare, inputs
 from ..reference import frame as reference_frame
 from .common import Phases, Sampler, closed_loop, strict_f32, sync
 
+FAULTS = ("half_batch", "altered")
+NUMBERS = ("disp_gap", "logvar_gap")
+TINY_MIX = {"batch": 3, "distinct_batches": 2, "checked_batches": 2}
+WINDOW = True
+MODEL_CLASS = "stereo_depth_estimation_tpu_torch.models.unet.StereoUNet"
+SPAN_UNIT = None  # the predict loop records no unit span
+
+
 class Cell:
     def __init__(self, cfg: dict, mix: dict, seed: int, device: torch.device) -> None:
         from stereo_depth_estimation_tpu_torch.models.unet import StereoUNet

@@ -7,6 +7,13 @@ training dtype (K2 pools, BatchNorm, ReLU), the masked Laplace NLL, the
 backward (K3) and AdamW. Set-up builds that one object and drives it from
 the seed through its first ``checked_steps`` steps, which the reference
 follows; the window continues the same object.
+
+A mix with a ``compile`` key (``{"mode": ..., "backend": ...}``, the
+trainer's ``--compile-mode`` and ``--compile-backend``) runs the model
+through ``torch.compile`` as the trainer's ``--compile`` does; the checked
+steps compile it. A mix with a ``rate_metric`` key reports the window's
+pairs a second under that name, the cell's own end-to-end metric, in place
+of ``train_pairs_per_s``.
 """
 
 from __future__ import annotations
@@ -20,12 +27,20 @@ from .. import compare, inputs
 from ..reference import train as reference_train
 from .common import Phases, strict_f32, sync
 
+FAULTS = ("unchanged", "half_batch", "altered")
+NUMBERS = ("loss_gap", "grad_gap", "change_gap", "grad_diff_median")
+TINY_MIX = {"batch": 4, "payload_pairs": 24, "trace_units": 1}
+WINDOW = False  # the checked steps are set-up's: the readings need no window
+MODEL_CLASS = "stereo_depth_estimation_tpu_torch.models.unet.StereoUNet"
+SPAN_UNIT = "train.step"
+
+
 class Cell:
     def __init__(self, cfg: dict, mix: dict, seed: int, device: torch.device) -> None:
         from stereo_depth_estimation_tpu_torch.models.unet import StereoUNet
         from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig
         from stereo_depth_estimation_tpu_torch.parallel.train_step import (
-            create_train_state, make_adamw, make_device_data_train_step)
+            CompileOptions, create_train_state, make_adamw, make_device_data_train_step)
 
         self.phases = Phases(device)
         self.cfg, self.mix, self.device = cfg, mix, device
@@ -42,7 +57,14 @@ class Cell:
                            device=device)
         model.load_state_dict(inputs.state_dict(self.p0, cfg))
         optimizer = make_adamw(model.parameters(), mix["lr"], mix["weight_decay"])
-        self.state = create_train_state(model, optimizer, seed=self.step_seed)
+        compile_options = None
+        if "compile" in mix:
+            # A model compiled earlier in this process (a test's, a reading's
+            # with another fault planted) must not serve this one.
+            torch._dynamo.reset()
+            compile_options = CompileOptions(**mix["compile"])
+        self.state = create_train_state(model, optimizer, seed=self.step_seed,
+                                        compile=compile_options)
         self.step = make_device_data_train_step(self.images, self.targets, self.batch,
                                                 AugmentConfig(**mix["augment"]))
         self.phases.mark("program")
@@ -87,7 +109,8 @@ class Cell:
         failed = int((~torch.isfinite(torch.stack(nll))).sum()) * self.batch
         pairs = steps * self.batch
         self.window_units, self.window_s = steps, elapsed
-        return {"train_pairs_per_s": pairs / elapsed}, pairs, failed
+        rate = self.mix.get("rate_metric", "train_pairs_per_s")
+        return {rate: pairs / elapsed}, pairs, failed
 
     def release(self) -> None:
         """Frees the program's state before the reference runs."""
