@@ -139,7 +139,8 @@ from stereo_depth_estimation_tpu_torch.eval.preview import normalize_map
 from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatcher, LiveDepthEngine
 from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
 from stereo_depth_estimation_tpu_torch.models.compat import rescale_resolution_transfer
-from stereo_depth_estimation_tpu_torch.ops import batchnorm, pool
+from stereo_depth_estimation_tpu_torch.models.psmnet import PSMNet
+from stereo_depth_estimation_tpu_torch.ops import batchnorm, cost_volume, pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     _pack_factors,
@@ -2966,14 +2967,17 @@ def counters() -> dict[str, tuple]:
     launches in ``.launches``. BN1 and BN2 also launch from one call of
     ``bn_relu_forward`` (BN1 with the epilogue in its second pass), BN3 and
     BN4 from one of ``bn_relu_backward``; BNE is that second pass alone, the
-    epilogue after a group's all-reduce."""
+    epilogue after a group's all-reduce; CV and CVB are PSMNet's cost volume,
+    forward and backward."""
     return {"GM": (gray_means_cuda,), "K1": (pointwise_chain_cuda,),
             "K2": (pool.maxpool2x2_fwd_cuda,), "K3": (pool.maxpool2x2_bwd_cuda,),
             "BN1": (batchnorm.bn_stats_cuda, batchnorm.bn_relu_forward_cuda),
             "BN2": (batchnorm.bn_relu_fwd_cuda, batchnorm.bn_relu_forward_cuda),
             "BN3": (batchnorm.bn_relu_bwd_sums_cuda, batchnorm.bn_relu_backward_cuda),
             "BN4": (batchnorm.bn_relu_bwd_dx_cuda, batchnorm.bn_relu_backward_cuda),
-            "BNE": (batchnorm.bn_moments_cuda, batchnorm.bn_bwd_coefficients_cuda)}
+            "BNE": (batchnorm.bn_moments_cuda, batchnorm.bn_bwd_coefficients_cuda),
+            "CV": (cost_volume.cost_volume_fwd_cuda,),
+            "CVB": (cost_volume.cost_volume_bwd_cuda,)}
 
 
 def sync_source(stack: traceback.StackSummary) -> str:
@@ -3464,6 +3468,234 @@ def fresh_compile_caches() -> Path:
     return root
 
 
+# PSMNet (models/psmnet.py) at its published size: batch 12 of 256x512 crops,
+# max disparity 192, so the cost volume is (12, 64, 48, 64, 128) from (12, 32,
+# 64, 128) features a view.
+PSM_BATCH = 12
+PSM_HW = (256, 512)
+PSM_DISPARITY = 192
+PSM_STEPS = 5
+# The cost-volume kernel against its plain version: (N, H/4, W/4, C), D, dtype.
+# The published shape in bf16; W/4 < D; C = 4 in bf16 (one channel a thread);
+# C = 12 in float32 (three 16-byte groups).
+CV_CASES = [((12, 64, 128, 32), 48, torch.bfloat16), ((2, 16, 40, 32), 48, torch.float32),
+            ((3, 8, 20, 4), 7, torch.bfloat16), ((2, 8, 24, 12), 5, torch.float32)]
+# The forward copies: bitwise its plain version. The backward's sums over d
+# (at most 48 terms, f32) run in another order than the plain version's and
+# round to bf16 once: within one bf16 spacing (2^-8 of the value) in bf16,
+# float32 round-off in float32, as shares of the largest |dleft|, |dright|.
+CV_BWD_RTOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+# One full-width float32 forward and backward of the port against the
+# published model in float32 on the card (TF32 off), from the same weights and
+# batch: outputs and loss agree to float32 round-off through 2 x 60 2D and 25
+# 3D BatchNorms (measured 1e-6-1e-5 of the scale on the CPU at channels 4);
+# a leaf's gradient norm to 2e-2: cuDNN's algorithms sum in other orders
+# than the published model's, and the batch-statistic backward through the
+# deep stack magnifies that noise in a BatchNorm weight's gradient (measured
+# 0.4% on an H100), as in the StereoUNet's 'Card vs CPU in f32'.
+PSM_OUT_RTOL = 1e-4
+PSM_GRAD_RTOL = 2e-2
+# The bf16 train step's first outputs against the published model in float32
+# (TF32 off) on the batch the step augmented, from the same weights, in
+# disparities: the largest mean |gap| of the three outputs, and the largest
+# |mean gap|. The limits of the benchmark's PSMNet cell, set from its readings
+# on an H100: bf16 reads 4.3-5.9 and 0.013-0.18, the reference's own fp8
+# convolutions 26.6-29.1 and 0.65-2.15.
+PSM_BF16_MAE = 12.5
+PSM_BF16_BIAS = 0.6
+
+
+def published_cost_volume(left: torch.Tensor, right: torch.Tensor, depth: int) -> torch.Tensor:
+    """The published loop of slice copies (models/stackhourglass.py) on (N, C,
+    H, W) features: PyTorch's own way to build the volume, the yardstick."""
+    n, c, h, w = left.shape
+    cost = left.new_zeros((n, 2 * c, depth, h, w))
+    for i in range(depth):
+        cost[:, :c, i, :, i:] = left[:, :, :, i:]
+        cost[:, c:, i, :, i:] = right[:, :, :, :w - i]
+    return cost
+
+
+def phase_cost_volume() -> dict:
+    """The cost-volume kernel (csrc/cost_volume.cu) against its plain version
+    at CV_CASES, then timed at the published shape against its byte bound,
+    its plain version and the published slice loop."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for (n, h, w, c), depth, dtype in CV_CASES:
+        left = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+        right = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+        got = cost_volume.cost_volume_fwd_cuda(left, right, depth)
+        want = cost_volume.cost_volume_fwd_plain(left, right, depth)
+        check(torch.equal(got, want), f"cost volume forward {(n, h, w, c)} D={depth} {dtype}")
+        dv = torch.randn(want.shape, generator=gen, device="cuda").to(dtype)
+        for got_g, want_g in zip(cost_volume.cost_volume_bwd_cuda(dv, c),
+                                 cost_volume.cost_volume_bwd_plain(dv, c)):
+            gap = float((got_g.float() - want_g.float()).abs().max()
+                        / want_g.float().abs().max().clamp(min=1e-30))
+            check(gap <= CV_BWD_RTOL[dtype],
+                  f"cost volume backward {(n, h, w, c)} D={depth} {dtype}: {gap:.3g}")
+            worst["bwd"] = max(worst["bwd"], gap)
+        again = cost_volume.cost_volume_bwd_cuda(dv, c)
+        check(all(torch.equal(a, b) for a, b in zip(again, cost_volume.cost_volume_bwd_cuda(
+            dv, c))), "cost volume backward repeatable")
+    print(f"cost volume check: forward bitwise its plain version in {len(CV_CASES)} cases "
+          f"(published bf16 shape, W/4 < D, C = 4 bf16, C = 12 f32); backward within "
+          f"{worst['bwd']:.3g} of the largest gradient (limits {CV_BWD_RTOL[torch.bfloat16]} "
+          f"bf16, {CV_BWD_RTOL[torch.float32]} f32), repeatable bitwise")
+
+    (n, h, w, c), depth, dtype = CV_CASES[0]
+    left = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+    right = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+    dv = torch.randn((n, depth, h, w, 2 * c), generator=gen, device="cuda").to(dtype)
+    nbytes = n * 2 * (2 * c * depth * h * w + 2 * c * h * w)  # one way, bf16
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    nchw = [t.permute(0, 3, 1, 2).requires_grad_() for t in (left.clone(), right.clone())]
+    loop_out = published_cost_volume(*nchw, depth)
+    loop_grad = dv.permute(0, 4, 1, 2, 3)
+    times = {
+        "fwd": (time_ms(lambda: cost_volume.cost_volume_fwd_cuda(left, right, depth), 20),
+                time_ms(lambda: cost_volume.cost_volume_fwd_plain(left, right, depth), 3),
+                time_ms(lambda: published_cost_volume(*nchw, depth), 5)),
+        "bwd": (time_ms(lambda: cost_volume.cost_volume_bwd_cuda(dv, c), 20),
+                time_ms(lambda: cost_volume.cost_volume_bwd_plain(dv, c), 3),
+                time_ms(lambda: torch.autograd.grad(loop_out, nchw, loop_grad,
+                                                    retain_graph=True), 5)),
+    }
+    out = {}
+    for way, (ms, plain_ms, library_ms) in times.items():
+        out[way] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "max_abs_err": worst[way]}
+        print(f"cost volume timing {way}: (12, 64, 128, 32) bf16 features, D {depth}: kernel "
+              f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB), "
+              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms * 1e3:.1f} us; the "
+              f"published slice loop {library_ms * 1e3:.1f} us")
+    return out
+
+
+def psmnet_reference_module():
+    """``tests/psmnet_reference.py``, the published model in plain torch.nn."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "psmnet_reference.py"
+    spec = importlib.util.spec_from_file_location("psmnet_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_psmnet() -> dict:
+    """PSMNet at full width: one float32 forward and backward of batch 2
+    against the published model (float32 on the card, TF32 off); then the
+    bf16 train step at its published size (batch 12, 256x512, D 192) over a
+    device-resident payload: ms a step, launches, peak memory, and the
+    kernels by device time."""
+    reference = psmnet_reference_module()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    h, w = PSM_HW
+    torch.manual_seed(0)
+    published = reference.PSMNet(PSM_DISPARITY, 32).cuda()
+    port = PSMNet(max_disparity=PSM_DISPARITY, device="cuda")
+    port.load_state_dict(published.state_dict())
+    x = torch.rand((2, h, w, 6), generator=gen, device="cuda")
+    target = torch.rand((2, h, w), generator=gen, device="cuda") * PSM_DISPARITY
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = published(x)
+        want_loss = reference.loss(want, target, PSM_DISPARITY)
+        want_loss.backward()
+        got = port(x)
+        got_loss, _ = port.step_loss(got, target, target > 0)
+        got_loss.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    out_gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+    loss_gap = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    ref_grads = dict(published.named_parameters())
+    grad_gap, leaf = max(
+        (abs(float(p.grad.norm()) - float(ref_grads[n].grad.norm()))
+         / max(float(ref_grads[n].grad.norm()), 1e-30), n)
+        for n, p in port.named_parameters())
+    check(out_gap <= PSM_OUT_RTOL and loss_gap <= PSM_OUT_RTOL,
+          f"PSMNet f32 outputs {out_gap:.3g}, loss {loss_gap:.3g} against the published model")
+    check(grad_gap <= PSM_GRAD_RTOL, f"PSMNet f32 leaf gradient {leaf} {grad_gap:.3g}")
+    print(f"psmnet check: full width (channels 32, 5,224,768 parameters) float32 batch 2 at "
+          f"{h}x{w}, D {PSM_DISPARITY}, against the published model on the card (TF32 off): "
+          f"outputs {out_gap:.3g}, loss {loss_gap:.3g} (limit {PSM_OUT_RTOL}), worst leaf "
+          f"gradient norm {grad_gap:.3g} at {leaf} (limit {PSM_GRAD_RTOL})")
+    del published, port, want, got, want_loss, got_loss
+
+    payload = 4 * PSM_BATCH
+    images = torch.randint(0, 256, (payload, h, w, 6), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    targets = torch.rand((payload, h, w), device="cuda", generator=gen) * PSM_DISPARITY
+    model = PSMNet(max_disparity=PSM_DISPARITY, compute_dtype=torch.bfloat16, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 0.0), seed=0)
+    runner = make_device_data_train_step(images, targets, PSM_BATCH, AugmentConfig())
+    published = reference.PSMNet(PSM_DISPARITY, 32).cuda()
+    published.load_state_dict(model.state_dict())
+    seen = {}
+
+    def keep(module, args, outputs) -> None:
+        if not seen:
+            seen.update(x=args[0].detach().clone(), preds=[o.detach() for o in outputs])
+
+    hook = model.register_forward_hook(keep)
+    runner(state)
+    hook.remove()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = published(seen["x"].float())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    gaps = [g.float() - w for g, w in zip(seen["preds"], want)]
+    mae = max(float(d.abs().mean()) for d in gaps)
+    bias = max(abs(float(d.mean())) for d in gaps)
+    check(mae <= PSM_BF16_MAE and bias <= PSM_BF16_BIAS,
+          f"PSMNet bf16 step's outputs against the float32 model: mean |gap| {mae:.3g}, "
+          f"|mean gap| {bias:.3g}")
+    print(f"psmnet bf16 check: the train step's first outputs (batch {PSM_BATCH}, {h}x{w}, "
+          f"augmented) against the published model in float32 (TF32 off) on its batch: "
+          f"largest mean |gap| {mae:.3f} disparities (limit {PSM_BF16_MAE}), largest "
+          f"|mean gap| {bias:.4f} (limit {PSM_BF16_BIAS})")
+    del published, seen, want, gaps
+    runner(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = [runner(state)[1] for _ in range(PSM_STEPS)]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / PSM_STEPS
+    got_counts = counts()
+    bn2d = sum(type(m).__name__ == "MeshBatchNorm2d" for m in model.modules())
+    bn3d = sum(type(m).__name__ == "MeshBatchNorm3d" for m in model.modules())
+    per_step = 2 * bn2d + bn3d  # the feature extractor runs once a view
+    expected = expect_launches(GM=PSM_STEPS, K1=PSM_STEPS, CV=PSM_STEPS, CVB=PSM_STEPS,
+                               **bn_launches(per_step * PSM_STEPS))
+    check(got_counts == expected, f"PSMNet launches {got_counts}, expected {expected}")
+    losses = [metrics_from_stats(s)["loss"] for s in stats]
+    check(all(math.isfinite(v) for v in losses), f"PSMNet losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"psmnet train: bf16, batch {PSM_BATCH}, {h}x{w}, D {PSM_DISPARITY}: {ms_step:.2f} "
+          f"ms/step, {PSM_BATCH * 1e3 / ms_step:.1f} pairs/s, launches a step: cost volume 1 "
+          f"+ 1, BN1-BN4 {per_step} each ({bn2d} 2D BatchNorms x 2 views + {bn3d} 3D), K1 1; "
+          f"losses {', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    rows, window_us = profile_kernels(lambda: runner(state), 2)
+    total = sum(r[0] for r in rows)
+    print(f"psmnet profile: 2 steps, device busy {total / 1e3:.1f} of {window_us / 1e3:.1f} ms; "
+          f"the 40 largest kernels:")
+    for dev_us, n_calls, name in rows[:40]:
+        print(f"psmnet profile:   {dev_us / 2e3:8.3f} ms/step {n_calls // 2:5d}x  {name[:150]}")
+    return {"ms_step": ms_step, "launches": got_counts, "peak_bytes": peak}
+
+
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
@@ -3674,6 +3906,10 @@ def run_all(caches: Path) -> int:
     mark("K2/K3 timing")
     bn_times = phase_bn_timing()
     mark("BN1-BN4 timing")
+    cv_times = phase_cost_volume()
+    mark("cost volume check and timing")
+    psm = phase_psmnet()
+    mark("PSMNet")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         # The trainer and the serving CLIs as a user runs them, without
         # cuDNN's autotuning (none of them turns it on).
@@ -3755,6 +3991,19 @@ def run_all(caches: Path) -> int:
         kernel["compiled_launches"] = compiled["launches"][name]
         kernel["knob_launches"] = {knob: r["counts"][name] for knob, r in knobs.items()}
         kernel["train_loop_launches"] = loop["counts"][name]
+    # The cost volume (PSMNet only): its forward and backward at the
+    # published shape, launched once each a PSMNet step; the library call is
+    # the published loop of slice copies (and its autograd backward).
+    for way, name in (("fwd", "CV"), ("bwd", "CVB")):
+        kernels.append({
+            "name": f"cost_volume_{way}",
+            "route": "cuda",
+            "source": "stereo_depth_estimation_tpu_torch/csrc/cost_volume.cu",
+            "replaces": "none (PSMNet's published slice loop, models/stackhourglass.py)",
+            "launches": psm["launches"][name],
+            "bound_by": "bytes",
+            **cv_times[way],
+        })
     # K2 also runs every serving forward (float32): its launches there and
     # its times at the serving shapes, summed over the four levels.
     k2 = kernels[2]

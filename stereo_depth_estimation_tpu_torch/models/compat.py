@@ -104,8 +104,9 @@ def load_torch_state_dict(
     """Load a (possibly legacy) reference state_dict into ``model`` in place.
 
     Non-strict like the reference loader: returns (missing_keys,
-    unexpected_keys). Missing entries (e.g. a checkpoint without a logvar
-    head) keep their current values. A shape mismatch raises."""
+    unexpected_keys); missing counts the StereoUNet's keys, or another
+    network's (PSMNet's) own. Missing entries (e.g. a checkpoint without a
+    logvar head) keep their current values. A shape mismatch raises."""
     mapped = apply_legacy_renames(dict(state_dict))
     own = model.state_dict()
     unexpected = [k for k in mapped if k not in own]
@@ -117,7 +118,10 @@ def load_torch_state_dict(
                 f"got {tuple(value.shape)}"
             )
     model.load_state_dict(present, strict=False)
-    missing = [k for k in torch_key_map() if k not in mapped]
+    expected = torch_key_map()
+    if not any(k in own for k in expected):  # another network (PSMNet): its own keys
+        expected = own
+    missing = [k for k in expected if k not in mapped]
     return missing, unexpected
 
 

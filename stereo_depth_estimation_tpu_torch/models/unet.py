@@ -81,6 +81,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops import batchnorm
 from ..ops.halo import SpatialGroup
+from ..ops.loss import LossStats, heteroscedastic_laplace_nll
 from ..ops.pool import max_pool_2x2
 
 
@@ -110,7 +111,8 @@ def _bn_backward(dy, z, stats, beta, eps, group, relu: bool):
     are all-reduced first, and dgamma and dbeta stay this rank's share, as
     autograd's are for a weight used on this rank."""
     # The incoming gradient's layout is autograd's; the kernels read rows.
-    dy = dy.contiguous(memory_format=torch.channels_last)
+    dy = dy.contiguous(memory_format=torch.channels_last if dy.ndim == 4
+                       else torch.channels_last_3d)
     if group is None:
         dz, coef = batchnorm.bn_relu_backward(dy, z, stats, beta, eps, relu)
     else:
@@ -185,6 +187,21 @@ class MeshBatchNorm2d(nn.BatchNorm2d):
         return _BatchNormReLU.apply(x, self.weight, self.bias, self.running_mean,
                                     self.running_var, self.num_batches_tracked, self.eps,
                                     self.momentum, self.bf16_stats, self.group, relu)
+
+
+class MeshBatchNorm3d(MeshBatchNorm2d):
+    """``MeshBatchNorm2d`` over (N, C, D, H, W) volumes: in training the
+    kernels read a channels_last_3d volume as its (N*D*H*W, C) rows (an input
+    in another layout is made channels_last_3d first); eval mode is
+    ``nn.BatchNorm3d``'s. Parameter and buffer names are
+    ``nn.BatchNorm3d``'s."""
+
+    def _check_input_dim(self, input: torch.Tensor) -> None:
+        if input.dim() != 5:
+            raise ValueError(f"expected 5D input (got {input.dim()}D input)")
+
+    def _train(self, x: torch.Tensor, relu: bool) -> torch.Tensor:
+        return super()._train(x.contiguous(memory_format=torch.channels_last_3d), relu)
 
 
 class HaloConv2d(nn.Conv2d):
@@ -389,6 +406,10 @@ _TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 class StereoUNet(nn.Module):
+    # What the train and eval steps ask of the model (parallel/train_step.py):
+    # the forward's keyword arguments and ``step_loss`` on its outputs.
+    step_kwargs = {"return_uncertainty": True}
+
     def __init__(
         self,
         in_channels: int = 6,
@@ -511,6 +532,14 @@ class StereoUNet(nn.Module):
             return disparity
         logvar = logvar_pre.float().clamp(-6.0, 3.0).permute(0, 2, 3, 1)
         return disparity, logvar
+
+    @staticmethod
+    def step_loss(outputs: tuple[torch.Tensor, torch.Tensor], target: torch.Tensor,
+                  mask: torch.Tensor) -> tuple[torch.Tensor, LossStats]:
+        """The train and eval steps' loss: the masked Laplace NLL of the
+        disparity and log-variance (``ops/loss.py``)."""
+        disp, logvar = outputs
+        return heteroscedastic_laplace_nll(disp[..., 0], logvar[..., 0], target, mask)
 
 
     def _run(self, block: ConvBlock, *inputs: torch.Tensor) -> torch.Tensor:

@@ -34,9 +34,10 @@ BN3, written once:
   epilogue, which then runs alone on them: ``bn_moments`` after BN1,
   ``bn_bwd_coefficients`` after BN3 (dbeta and dgamma stay this rank's).
 
-An activation is an (M, C) matrix, C contiguous, or a channels_last (N, C,
-H, W) tensor, which is one in memory (``rows``); an op returns its
-activation in the layout it took.
+An activation is an (M, C) matrix, C contiguous, a channels_last (N, C, H,
+W) tensor or a channels_last_3d (N, C, D, H, W) volume, each one such
+matrix in memory (``rows``); an op returns its activation in the layout it
+took.
 
 For each op: ``*_plain`` is the plain PyTorch version; ``*_cuda`` launches
 the kernel on CUDA tensors only (anything else raises) and counts its
@@ -59,20 +60,28 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def rows(x: torch.Tensor) -> torch.Tensor:
-    """The (N*H*W, C) view of a channels_last (N, C, H, W) tensor; raises on
-    any other layout rather than copying."""
-    if x.ndim != 4 or not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(
-            f"the BatchNorm kernels take channels_last (N, C, H, W) tensors, got "
-            f"shape {tuple(x.shape)} strides {x.stride()}"
-        )
-    return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+    """The (N*H*W, C) view of a channels_last (N, C, H, W) tensor, or the
+    (N*D*H*W, C) view of a channels_last_3d (N, C, D, H, W) volume; raises
+    on any other layout rather than copying."""
+    if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+    if x.ndim == 5 and x.is_contiguous(memory_format=torch.channels_last_3d):
+        return x.permute(0, 2, 3, 4, 1).reshape(-1, x.shape[1])
+    raise ValueError(
+        f"the BatchNorm kernels take channels_last (N, C, H, W) tensors or "
+        f"channels_last_3d (N, C, D, H, W) volumes, got shape {tuple(x.shape)} "
+        f"strides {x.stride()}"
+    )
 
 
 def unrows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(N*H*W, C) back to the channels_last (N, C, H, W) view of ``like``'s shape."""
-    n, c, h, w = like.shape
-    return y.view(n, h, w, c).permute(0, 3, 1, 2)
+    """Rows back to the channels_last (N, C, H, W) or channels_last_3d (N, C,
+    D, H, W) view of ``like``'s shape."""
+    if like.ndim == 4:
+        n, c, h, w = like.shape
+        return y.view(n, h, w, c).permute(0, 3, 1, 2)
+    n, c, d, h, w = like.shape
+    return y.view(n, d, h, w, c).permute(0, 4, 1, 2, 3)
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:
@@ -229,16 +238,18 @@ def _cuda(what: str, t: torch.Tensor) -> int:
 
 def _check(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
     """(M, C) of CUDA activations of one shape, dtype (float32 or bf16) and
-    device, each (M, C) contiguous or channels_last (N, C, H, W)."""
+    device, each (M, C) contiguous, channels_last (N, C, H, W) or
+    channels_last_3d (N, C, D, H, W)."""
     first = tensors[0]
     index = _cuda(what, first)
     for t in tensors:
         laid = (t.is_contiguous() if t.ndim == 2 else
-                t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last))
+                t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last)
+                or t.ndim == 5 and t.is_contiguous(memory_format=torch.channels_last_3d))
         if not laid or t.dtype not in _DTYPES:
-            raise ValueError(f"{what} takes (M, C) contiguous or channels_last (N, C, H, W) "
-                             f"float32 or bfloat16 tensors, got {tuple(t.shape)} strides "
-                             f"{t.stride()} {t.dtype}")
+            raise ValueError(f"{what} takes (M, C) contiguous, channels_last (N, C, H, W) "
+                             f"or channels_last_3d (N, C, D, H, W) float32 or bfloat16 "
+                             f"tensors, got {tuple(t.shape)} strides {t.stride()} {t.dtype}")
         if t.shape != first.shape or t.dtype != first.dtype or t.get_device() != index:
             raise ValueError(f"{what}: tensors of one shape, dtype and device, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device} and "

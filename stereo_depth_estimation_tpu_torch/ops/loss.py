@@ -1,4 +1,5 @@
-"""Masked heteroscedastic Laplace NLL and pixel-weighted metrics.
+"""Masked heteroscedastic Laplace NLL, PSMNet's weighted smooth L1, and
+pixel-weighted metrics.
 
 Counterpart of ``stereo_depth_estimation_tpu/ops/loss.py``:
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 
 class LossStats(NamedTuple):
@@ -58,6 +60,48 @@ def heteroscedastic_laplace_nll(
         abs_err_sum=abs_diff.sum(),
         sq_err_sum=((diff * maskf) ** 2).sum(),
         sigma_sum=sigma.sum(),
+        valid_count=valid_count,
+    )
+    return loss, stats
+
+
+# PSMNet's weights of its three outputs (the published main.py).
+PSMNET_OUTPUT_WEIGHTS = (0.5, 0.7, 1.0)
+
+
+def weighted_smooth_l1(
+    preds: tuple[torch.Tensor, ...] | torch.Tensor,
+    target: torch.Tensor,
+    valid_mask: torch.Tensor,
+    max_disparity: float,
+    weights: tuple[float, ...] = PSMNET_OUTPUT_WEIGHTS,
+) -> tuple[torch.Tensor, LossStats]:
+    """PSMNet's training loss, (scalar loss, LossStats): the sum over the
+    outputs ``preds`` (each (N, H, W)) of weight * the mean smooth L1 (beta
+    1) over the mask, mask = valid_mask & isfinite(target) & target <
+    max_disparity. One tensor (the eval output) takes the last weight.
+
+    ``nll_sum`` is the weighted sum over the mask, so ``nll_sum /
+    valid_count`` is the loss; ``abs_err_sum`` and ``sq_err_sum`` are the
+    last output's; ``sigma_sum`` is 0 (no log-variance head)."""
+    if isinstance(preds, torch.Tensor):
+        preds, weights = (preds,), weights[-1:]
+    mask = valid_mask & torch.isfinite(target) & (target < max_disparity)
+    safe_target = torch.where(mask, target, 0.0).to(torch.float32)
+    valid_count = mask.to(torch.float32).sum()
+    weighted = None
+    for weight, pred in zip(weights, preds):
+        term = F.smooth_l1_loss(pred.to(torch.float32), safe_target, reduction="none",
+                                beta=1.0)
+        term = torch.where(mask, term, 0.0).sum() * weight
+        weighted = term if weighted is None else weighted + term
+    loss = weighted / valid_count.clamp(min=1.0)
+    diff = torch.where(mask, preds[-1].to(torch.float32) - safe_target, 0.0)
+    stats = LossStats(
+        nll_sum=weighted,
+        abs_err_sum=diff.abs().sum(),
+        sq_err_sum=(diff * diff).sum(),
+        sigma_sum=torch.zeros_like(valid_count),
         valid_count=valid_count,
     )
     return loss, stats

@@ -2,11 +2,15 @@
 
 Counterpart of ``stereo_depth_estimation_tpu/parallel/train_step.py``. One
 train step: uint8 batch -> augmentation (the CUDA kernel for CUDA
-tensors) -> StereoUNet forward with uncertainty -> masked Laplace NLL ->
-backward -> AdamW, with the zero-valid-batch no-op gate. Nothing in the step
-waits for the host: the loss statistics come back as device tensors, the
-learning rate is computed on the device from AdamW's own step count, and the
-no-op gate selects on the device. ``make_device_data_train_loop`` runs K such
+tensors) -> model forward -> the model's loss -> backward -> AdamW, with
+the zero-valid-batch no-op gate. The steps name no network: they call the
+model with its ``step_kwargs`` and take the loss and ``LossStats`` of its
+outputs from its ``step_loss`` (the StereoUNet: the forward with
+uncertainty and the masked Laplace NLL; PSMNet: three outputs and the
+weighted smooth L1). Nothing in the step waits for the host: the loss
+statistics come back as device tensors, the learning rate is computed on
+the device from AdamW's own step count, and the no-op gate selects on the
+device. ``make_device_data_train_loop`` runs K such
 steps over a device-resident payload per call and stacks their stats on the
 device (JAX ``make_device_data_train_loop``).
 
@@ -70,7 +74,7 @@ from ..models.unet import StereoUNet
 from ..ops.augment import AugmentConfig, augment_stereo_batch
 from ..ops.augment_cuda import augment_stereo_batch_fused
 from ..ops.halo import Stripe
-from ..ops.loss import LossStats, heteroscedastic_laplace_nll
+from ..ops.loss import LossStats
 from ..spans import span
 from .mesh import Mesh
 
@@ -79,7 +83,7 @@ Batch = dict[str, torch.Tensor]
 
 @dataclass
 class TrainState:
-    model: StereoUNet
+    model: nn.Module  # StereoUNet or PSMNet: it gives the steps its loss
     optimizer: torch.optim.AdamW
     generator: torch.Generator  # all of the step's randomness, on the model's device
     step: int = 0  # steps taken, zero-valid batches included
@@ -204,7 +208,7 @@ def rank_seed(seed: int, mesh: Mesh | None) -> int:
 
 
 def create_train_state(
-    model: StereoUNet, optimizer: torch.optim.AdamW, seed: int = 0,
+    model: nn.Module, optimizer: torch.optim.AdamW, seed: int = 0,
     mesh: Mesh | None = None, compile: CompileOptions | None = None,
 ) -> TrainState:
     """The train state; on a mesh of several ranks the model is wrapped in
@@ -344,12 +348,9 @@ def make_train_step(
 
             model.train()
             with span("train.forward"):
-                disp, logvar = _forward_module(state, train=True)(
-                    inputs, return_uncertainty=True)
+                outputs = _forward_module(state, train=True)(inputs, **model.step_kwargs)
             with span("train.loss"):
-                loss, stats = heteroscedastic_laplace_nll(
-                    disp[..., 0], logvar[..., 0], target, mask
-                )
+                loss, stats = model.step_loss(outputs, target, mask)
             if distributed:
                 # The global masked mean: the ranks' valid counts differ (invalid
                 # pixels, padded rows), and DistributedDataParallel averages the
@@ -488,14 +489,12 @@ def make_eval_step(mesh: Mesh | None = None) -> Callable[[TrainState, Batch], Lo
         was_training = model.training
         model.eval()
         try:
-            disp, logvar = _forward_module(state, train=False)(
-                _prepare_input(batch["input"]), return_uncertainty=True)
+            outputs = _forward_module(state, train=False)(
+                _prepare_input(batch["input"]), **model.step_kwargs)
         finally:
             model.train(was_training)
         target, mask = _targets_and_mask(batch)
-        _, stats = heteroscedastic_laplace_nll(
-            disp[..., 0], logvar[..., 0], target, mask
-        )
+        _, stats = model.step_loss(outputs, target, mask)
         return global_stats(stats, mesh)
 
     return eval_step

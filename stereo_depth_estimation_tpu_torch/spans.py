@@ -28,7 +28,9 @@ started:
   stage's length on the device's timeline (the device's idle time between
   the stage's launches included); None where no event was recorded.
 
-``reset()`` empties the store. No span sits in code that ``torch.compile``
+``reset()`` empties the store; inside ``set_aside()`` spans record as
+ever and are then dropped, so a capture that is not a reading (one with
+operator shapes, say) leaves the store as it found it. No span sits in code that ``torch.compile``
 traces: the compiled programs run inside a span, never around one.
 """
 
@@ -119,3 +121,16 @@ def reset() -> None:
     global _dropped
     _store.clear()
     _dropped = 0
+
+
+@contextlib.contextmanager
+def set_aside():
+    """Spans finished inside are not kept: the store and the count of dropped
+    spans come out as they went in."""
+    global _dropped
+    kept, dropped_before = list(_store), _dropped
+    try:
+        yield
+    finally:
+        _store[:] = kept
+        _dropped = dropped_before

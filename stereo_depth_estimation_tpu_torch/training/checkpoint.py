@@ -102,6 +102,10 @@ def load_train_state(
     return state, {k: checkpoint.get(k) for k in ("epoch", "config", "metrics")}
 
 
+# A key only PSMNet's state_dict has (models/psmnet.py).
+_PSMNET_KEY = "feature_extraction.firstconv.0.0.weight"
+
+
 def load_model_variables(
     checkpoint_path: Path, model: torch.nn.Module
 ) -> dict[str, Any]:
@@ -114,6 +118,11 @@ def load_model_variables(
         raise FileNotFoundError(f"Not a .pt/.pth checkpoint: {path}")
     checkpoint = _load(path)
     state_dict = checkpoint.get("model_state_dict", checkpoint)
+    if _PSMNET_KEY in state_dict and _PSMNET_KEY not in model.state_dict():
+        raise ValueError(
+            f"{path} is a PSMNet checkpoint (trained with --model psmnet); predict, "
+            "evaluate, export, the live viewer and the rescale CLI serve the StereoUNet "
+            "only, and serving PSMNet is not supported")
     missing, unexpected = load_torch_state_dict(model, state_dict)
     return {
         "epoch": int(checkpoint.get("epoch", -1)),

@@ -49,6 +49,10 @@ class TrainConfig:
     augment_impl: str = "auto"  # auto|xla|pallas: auto, plain, the CUDA kernel
     input_precision: str = "uint8"  # uint8|float32
     base_channels: int = 32  # UNet width; 32 = reference spec (7.76M params)
+    # Port-only: the network the trainer builds (models/unet.py or
+    # models/psmnet.py), and PSMNet's disparity range.
+    model: str = "stereounet"  # stereounet|psmnet
+    max_disparity: int = 192
     mesh_devices: int = 0  # ranks, one GPU each; 0 = all visible GPUs (1 on the CPU)
     spatial_devices: int = 1
     compute_dtype: str = "bfloat16"
@@ -166,7 +170,15 @@ def parse_args(argv: list[str] | None = None) -> TrainConfig:
         help="Host batch image precision (float32 is not usable with the "
              "packed cache).")
     add("--base-channels", type=int, default=defaults.base_channels,
-        help="UNet width multiplier (32 = reference architecture).")
+        help="UNet width multiplier (32 = reference architecture); PSMNet's "
+             "channels (32 = the published network).")
+    add("--model", type=str, default=defaults.model, choices=("stereounet", "psmnet"),
+        help="The network to train: the StereoUNet, or PSMNet (stacked hourglass, "
+             "Chang & Chen 2018; three outputs, weighted smooth L1). Only the "
+             "StereoUNet is served by predict, evaluate, export and the live viewer.")
+    add("--max-disparity", type=int, default=defaults.max_disparity, dest="max_disparity",
+        help="PSMNet's disparity range (a multiple of 16); targets at or above it "
+             "are masked out of the loss.")
     add("--mesh-devices", type=int, default=defaults.mesh_devices,
         help="Data-parallel ranks on this host, one GPU each (0 = all visible "
              "GPUs; one rank on the CPU). More than the visible GPUs raises.")

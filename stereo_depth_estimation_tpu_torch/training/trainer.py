@@ -46,6 +46,7 @@ from ..data.packed_cache import PackedCache, build_packed_cache, samples_fingerp
 from ..data.pipeline import batch_iterator, cuda_put, loader_fetch, prefetch_to_device
 from ..data.samples import discover_samples, split_samples
 from ..eval.preview import save_preview_montage
+from ..models.psmnet import PSMNet
 from ..models.unet import StereoUNet, count_params
 from ..ops.augment import AugmentConfig
 from ..ops.loss import LossStats, accumulate_stats, metrics_from_stats
@@ -89,6 +90,8 @@ def check_supported(cfg: TrainConfig, device: torch.device) -> None:
     cards, and on a rank count that ``--spatial-devices`` does not divide
     where this process knows the count (with the environment's rendezvous
     the mesh raises once the group is joined)."""
+    if cfg.model == "psmnet" and cfg.spatial_devices > 1:
+        raise ValueError("--model psmnet trains on whole images: --spatial-devices must be 1")
     env = _env_rendezvous(cfg)
     local = local_rank_count(device, cfg.mesh_devices, env_rendezvous=env)
     if not env:
@@ -109,7 +112,31 @@ def compile_cache_from(cfg: TrainConfig, mesh: Mesh, verbose: bool) -> CompileCa
         "batch_size": cfg.batch_size, "height": cfg.height, "width": cfg.width,
         "ranks": mesh.world_size, "rank": mesh.rank, "spatial": mesh.spatial,
     }
+    if cfg.model != "stereounet":
+        setting.update(model=cfg.model, max_disparity=cfg.max_disparity)
     return compile_cache_for(cfg.aot_cache, cfg.output_dir, setting, mesh.device, verbose)
+
+
+def build_model(cfg: TrainConfig, mesh: Mesh) -> StereoUNet | PSMNet:
+    """The ``--model`` network on this rank, its weights drawn from the seed;
+    with several ranks its BatchNorm statistics are the mesh's."""
+    compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    generator = torch.Generator().manual_seed(cfg.seed)
+    bn_group = mesh.group if mesh.distributed else None
+    if cfg.model == "psmnet":
+        return PSMNet(max_disparity=cfg.max_disparity, channels=cfg.base_channels,
+                      compute_dtype=compute_dtype, device=mesh.device, generator=generator,
+                      bn_group=bn_group)
+    return StereoUNet(
+        in_channels=6,
+        out_channels=1,
+        base_channels=cfg.base_channels,
+        compute_dtype=compute_dtype,
+        device=mesh.device,
+        generator=generator,
+        bn_group=bn_group,
+        spatial_group=mesh.spatial_group,
+    )
 
 
 def augment_config_from(cfg: TrainConfig) -> AugmentConfig | None:
@@ -491,7 +518,9 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
 
     preview_source = val_samples if val_samples else train_samples
     preview_split = "val" if val_samples else "train"
-    preview_count = min(cfg.preview_samples, len(preview_source))
+    # Previews predict through the StereoUNet's serving path.
+    preview_count = min(cfg.preview_samples, len(preview_source)) if cfg.model == "stereounet" \
+        else 0
 
     # Device-resident path (parallel/window.py): the packed train set pinned
     # in device memory when it fits the budget, else rotated through it in
@@ -540,16 +569,7 @@ def train_rank(mesh: Mesh, cfg: TrainConfig, keep_state: bool = True) -> dict[st
                 # makes no host traffic. Several ranks stream their stripes.
                 device_val_batches = _device_val_batches(val_cache, cfg.batch_size, device)
 
-    model = StereoUNet(
-        in_channels=6,
-        out_channels=1,
-        base_channels=cfg.base_channels,
-        compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
-        device=device,
-        generator=torch.Generator().manual_seed(cfg.seed),
-        bn_group=mesh.group if mesh.distributed else None,
-        spatial_group=mesh.spatial_group,
-    )
+    model = build_model(cfg, mesh)
     steps_per_epoch = (
         windowed.plan.steps_per_epoch
         if windowed is not None

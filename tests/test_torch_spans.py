@@ -140,6 +140,18 @@ def test_a_full_store_counts_what_it_drops(monkeypatch) -> None:
     assert spans.records() == [] and spans.dropped() == 0
 
 
+def test_spans_set_aside_leave_the_store_as_it_was() -> None:
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("kept"):
+            pass
+        with spans.set_aside():
+            with spans.span("aside"):
+                pass
+        with spans.span("after"):
+            pass
+    assert [r.name for r in spans.records()] == ["kept", "after"] and spans.dropped() == 0
+
+
 def _span_calls(path: Path, cls: str, methods: set[str]) -> dict[str, int]:
     """Calls of ``span`` in each of ``cls``'s ``methods``."""
     tree = ast.parse(path.read_text(), filename=str(path))

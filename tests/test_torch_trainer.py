@@ -39,6 +39,9 @@ from stereo_depth_estimation_tpu_torch.training.config import parse_args
 
 BASE, HW = 4, (32, 48)
 RTOL = 1e-4
+# The port's own flags, with their defaults: the network to train (--model)
+# and PSMNet's disparity range.
+PORT_ONLY = {"model": "stereounet", "max_disparity": 192}
 
 
 def _flags(root: Path, *extra: str) -> list[str]:
@@ -115,7 +118,7 @@ def test_checkpoints_and_params_follow_the_jax_trainer(runs, root) -> None:
         (Path(jax_summary["checkpoints_dir"]) / "last" / "meta.json").read_text()
     )
     assert checkpoint.load_checkpoint_meta(ckpt / "last.pt")["epoch"] == jax_last["epoch"] == 2
-    assert last["config"].keys() == jax_last["config"].keys()
+    assert last["config"].keys() == jax_last["config"].keys() | PORT_ONLY.keys()
     assert last["metrics"].keys() == jax_last["metrics"].keys()
     assert last["metrics"]["resume_carry"] == pytest.approx(
         jax_last["metrics"]["resume_carry"], rel=RTOL
@@ -275,12 +278,18 @@ def test_accepted_jax_flags_and_augment_impl_names() -> None:
     assert trainer.augment_config_from(parse_args(["--no-augment"])) is None
 
 
+def _jax_fields(cfg) -> dict:
+    port = asdict(cfg)
+    assert {k: port.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    return port
+
+
 def test_parse_args_matches_jax_config() -> None:
-    assert asdict(parse_args([])) == asdict(jax_parse_args([]))
+    assert _jax_fields(parse_args([])) == asdict(jax_parse_args([]))
     argv = ["--epochs", "3", "--lr-schedule", "cosine", "--no-augment", "--augment-impl", "xla",
             "--packed-cache-root", "p", "--device-resident", "on", "--hbm-window-gb", "2.5",
             "--resume", "r.pt", "--compute-dtype", "float32", "--input-precision", "float32"]
-    assert asdict(parse_args(argv)) == asdict(jax_parse_args(argv))
+    assert _jax_fields(parse_args(argv)) == asdict(jax_parse_args(argv))
 
 
 def test_device_auto_is_the_card() -> None:
