@@ -92,7 +92,14 @@ initialisers and, bitwise, to the one built on the CPU from the same seed
   compiled in mode ``default`` and ``reduce-overhead`` (CUDA graphs, its K2
   launches counted by the profiler) against the eager engine and across a
   hot reload, and a child process with empty Inductor and Triton caches that
-  loads all three from the blobs the first process saved.
+  loads all three from the blobs the first process saved;
+- the zero-valid gate (``csrc/gate.cu``): its snapshot and restore kernels
+  against the plain versions, bitwise, over the StereoUNet's (AdamW and
+  FlatAdamW) and PSMNet's full-width gated sets at a valid count of 1, 0 and
+  NaN, timed beside their byte bound, the per-tensor loop they replaced and
+  ``torch._foreach_copy_``; then five train steps with one zero-valid batch
+  and its ``restores`` counter. Every training path above launches each of
+  the two once a step ("G" and "GR").
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times each kernel against its bound, its plain version
@@ -140,7 +147,7 @@ from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatch
 from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
 from stereo_depth_estimation_tpu_torch.models.compat import rescale_resolution_transfer
 from stereo_depth_estimation_tpu_torch.models.psmnet import PSMNet
-from stereo_depth_estimation_tpu_torch.ops import batchnorm, cost_volume, pool
+from stereo_depth_estimation_tpu_torch.ops import batchnorm, cost_volume, gate, pool
 from stereo_depth_estimation_tpu_torch.ops.augment import AugmentConfig, sample_factors
 from stereo_depth_estimation_tpu_torch.ops.augment_cuda import (
     _pack_factors,
@@ -1077,7 +1084,8 @@ def phase_trainer(tmp: Path) -> Path:
         # batch and per preview predict.
         expected = expect_launches(GM=steps, K1=steps,
                                    K2=4 * (steps + epochs * (val_batches + 1)),
-                                   K3=4 * steps, **bn_launches(18 * steps))
+                                   K3=4 * steps, **bn_launches(18 * steps),
+                                   **gate_launches(steps))
         got = {k: run_counts[k] for k in expected}
         check(got == expected, f"trainer launches {got}, expected {expected}")
         for epoch in summary["epochs"]:
@@ -1176,7 +1184,8 @@ def harness_run(work: Path, docs: Path, tag: str, epochs: int,
     # preview predict.
     expected = expect_launches(GM=steps, K1=steps,
                                K2=4 * (steps + epochs * (val_batches + 1)),
-                               K3=4 * steps, **bn_launches(18 * steps))
+                               K3=4 * steps, **bn_launches(18 * steps),
+                               **gate_launches(steps))
     check(run_counts == expected, f"convergence{tag} launches {run_counts}, "
           f"expected {expected}")
     epoch_s = [e["epoch_seconds"] for e in summary["epochs"]]
@@ -2615,7 +2624,7 @@ def phase_multi_rank(tmp: Path) -> dict[str, list[int]]:
         # the epilogue after each all-reduce.
         expected = {"GM": steps, "K1": steps, "K3": 4 * steps,
                     "K2": 4 * (steps + MR_EPOCHS * val_batches + previews),
-                    **bn_launches(18 * steps, group=True)}
+                    **bn_launches(18 * steps, group=True), **gate_launches(steps)}
         got = {k: result["counts"][k] for k in expected}
         check(got == expected, f"rank {r} trainer launches {got}, expected {expected}")
         for k, v in got.items():
@@ -2814,7 +2823,8 @@ def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
     gaps = held_against_one_rank(two, ones, tmp / "sp_states", "1 x 2 spatial vs one rank",
                                  SP_STATS_RTOL, SP_GRAD_RTOL, SP_BN_RTOL)
     expected = expect_launches(GM=SP_STEPS, K1=SP_STEPS, K2=4 * SP_STEPS, K3=4 * SP_STEPS,
-                               **bn_launches(18 * SP_STEPS, group=True))
+                               **bn_launches(18 * SP_STEPS, group=True),
+                               **gate_launches(SP_STEPS))
     for r, result in enumerate(results):
         check(result["step_counts"] == expected,
               f"rank {r} step launches {result['step_counts']}, expected {expected}")
@@ -2866,7 +2876,7 @@ def phase_spatial(tmp: Path) -> dict[str, dict[str, list[int]]]:
         # Both ranks of data row 0 predict the previews, each its stripe.
         want = {"GM": steps, "K1": steps, "K3": 4 * steps,
                 "K2": 4 * (steps + SP_EPOCHS * 2),  # a validation batch, the previews
-                **bn_launches(18 * steps, group=True)}
+                **bn_launches(18 * steps, group=True), **gate_launches(steps)}
         got = {k: result["counts"][k] for k in want}
         check(got == want, f"rank {r} spatial trainer launches {got}, expected {want}")
         for k in want:
@@ -2968,7 +2978,8 @@ def counters() -> dict[str, tuple]:
     ``bn_relu_forward`` (BN1 with the epilogue in its second pass), BN3 and
     BN4 from one of ``bn_relu_backward``; BNE is that second pass alone, the
     epilogue after a group's all-reduce; CV and CVB are PSMNet's cost volume,
-    forward and backward."""
+    forward and backward; G and GR the zero-valid gate's snapshot and
+    restore, once each a train step."""
     return {"GM": (gray_means_cuda,), "K1": (pointwise_chain_cuda,),
             "K2": (pool.maxpool2x2_fwd_cuda,), "K3": (pool.maxpool2x2_bwd_cuda,),
             "BN1": (batchnorm.bn_stats_cuda, batchnorm.bn_relu_forward_cuda),
@@ -2977,7 +2988,8 @@ def counters() -> dict[str, tuple]:
             "BN4": (batchnorm.bn_relu_bwd_dx_cuda, batchnorm.bn_relu_backward_cuda),
             "BNE": (batchnorm.bn_moments_cuda, batchnorm.bn_bwd_coefficients_cuda),
             "CV": (cost_volume.cost_volume_fwd_cuda,),
-            "CVB": (cost_volume.cost_volume_bwd_cuda,)}
+            "CVB": (cost_volume.cost_volume_bwd_cuda,),
+            "G": (gate.gate_snapshot_cuda,), "GR": (gate.gate_restore_cuda,)}
 
 
 def sync_source(stack: traceback.StackSummary) -> str:
@@ -3181,11 +3193,16 @@ def bn_launches(per_step: int, group: bool = False) -> dict[str, int]:
     return {**dict.fromkeys(BN_NAMES, per_step), **({"BNE": 2 * per_step} if group else {})}
 
 
+def gate_launches(steps: int) -> dict[str, int]:
+    """The zero-valid gate's snapshot and restore, once each a train step."""
+    return {"G": steps, "GR": steps}
+
+
 def train_launches(steps: int) -> dict[str, int]:
-    """One rank's training steps: the gray means, K1, 4 K2 and 4 K3, and the
-    18 BatchNorms' BN1-BN4, a step."""
+    """One rank's training steps: the gray means, K1, 4 K2 and 4 K3, the
+    18 BatchNorms' BN1-BN4 and the gate's two launches, a step."""
     return {"GM": steps, "K1": steps, "K2": 4 * steps, "K3": 4 * steps,
-            **bn_launches(18 * steps)}
+            **bn_launches(18 * steps), **gate_launches(steps)}
 
 
 def phase_train(state, runner) -> tuple[float, list[LossStats]]:
@@ -3413,7 +3430,7 @@ def phase_compile_cache(tmp: Path, caches: Path) -> dict:
     first, first_counts, first_s = counted(trainer.main, compile_cache_argv(tmp, "first"))
     steps = 1  # 144 train samples pinned at batch 128
     expected = expect_launches(GM=steps, K1=steps, K2=4 * (steps + 1 + 1), K3=4 * steps,
-                               **bn_launches(18 * steps))
+                               **bn_launches(18 * steps), **gate_launches(steps))
     check(first_counts == expected, f"compiled trainer launches {first_counts}, expected "
           f"{expected}")
     check(all(first["compile_cache"][k]["source"] == "compiled"
@@ -3677,7 +3694,8 @@ def phase_psmnet() -> dict:
     bn3d = sum(type(m).__name__ == "MeshBatchNorm3d" for m in model.modules())
     per_step = 2 * bn2d + bn3d  # the feature extractor runs once a view
     expected = expect_launches(GM=PSM_STEPS, K1=PSM_STEPS, CV=PSM_STEPS, CVB=PSM_STEPS,
-                               **bn_launches(per_step * PSM_STEPS))
+                               **bn_launches(per_step * PSM_STEPS),
+                               **gate_launches(PSM_STEPS))
     check(got_counts == expected, f"PSMNet launches {got_counts}, expected {expected}")
     losses = [metrics_from_stats(s)["loss"] for s in stats]
     check(all(math.isfinite(v) for v in losses), f"PSMNet losses {losses}")
@@ -3694,6 +3712,152 @@ def phase_psmnet() -> dict:
     for dev_us, n_calls, name in rows[:40]:
         print(f"psmnet profile:   {dev_us / 2e3:8.3f} ms/step {n_calls // 2:5d}x  {name[:150]}")
     return {"ms_step": ms_step, "launches": got_counts, "peak_bytes": peak}
+
+
+# The zero-valid gate (csrc/gate.cu) over the full-width gated sets: its
+# snapshot and restore against the plain versions, bitwise; timed over
+# GATE_REPS launches, the per-tensor loop it replaced and the library's
+# multi-tensor copy over fewer.
+GATE_REPS = 50
+GATE_LOOP_REPS = 5
+
+
+def gate_sets() -> dict[str, TrainState]:
+    """Train states whose gated tensors are a training run's: the StereoUNet
+    (base 32, bf16) with AdamW and with FlatAdamW (aliased moment views,
+    one shared count), and PSMNet (channels 32, D 192) with Adam."""
+    states = {}
+    for name, make in (("StereoUNet", make_adamw), ("StereoUNet FlatAdamW", make_flat_adamw)):
+        model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
+        states[name] = create_train_state(model, make(model.parameters(), 1e-3, 1e-4), seed=0)
+    model = PSMNet(max_disparity=PSM_DISPARITY, compute_dtype=torch.bfloat16, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    states["PSMNet"] = create_train_state(model, make_adamw(model.parameters(), 1e-3, 0.0),
+                                          seed=0)
+    return states
+
+
+def per_tensor_gate(tensors: list[torch.Tensor], valid_count: torch.Tensor) -> None:
+    """The gate as the step ran it before the kernels: a clone a tensor,
+    then a where and a copy_ a tensor."""
+    tensors = [t.detach() for t in tensors]
+    snapshot = [t.clone() for t in tensors]
+    with torch.no_grad():
+        keep = valid_count > 0
+        for live, old in zip(tensors, snapshot):
+            live.copy_(torch.where(keep, live, old))
+
+
+def phase_gate() -> dict[str, dict]:
+    """The gate's two kernels against the plain versions on the card, over
+    each of ``gate_sets``: the snapshot's slots, and the restore at a valid
+    count of 1, 0 and NaN from the same scrambled bytes, bitwise, with the
+    ``restores`` counter; their times beside the byte bound (the set read
+    and written once at 3.35 TB/s), the per-tensor loop's (host clock, a
+    synchronise at the end) and ``torch._foreach_copy_``'s, which the port
+    never calls. Then five train steps of the StereoUNet, the third on a
+    batch with no valid pixel: one snapshot and one restore launch a step,
+    one restore counted, one table, and that step a no-op."""
+    results = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    for name, state in gate_sets().items():
+        tensors = train_step._gated_tensors(state)
+        table, twin = gate.build_table(tensors), gate.build_table(tensors)
+        nbytes = sum(v.numel() for v in table.live)
+        reset_counts()
+        gate.gate_snapshot_cuda(table)
+        gate.gate_snapshot_plain(twin)
+        check(all(torch.equal(a, b) for a, b in zip(table.saved, twin.saved)),
+              f"gate {name}: the snapshot kernel's slots differ from the plain version's")
+        original = [v.clone() for v in table.live]
+        restores = torch.zeros((), dtype=torch.int64, device="cuda")
+        plain_restores = torch.zeros_like(restores)
+        for count, restored in ((1.0, False), (0.0, True), (math.nan, True)):
+            valid = torch.tensor(count, device="cuda")
+            for v in table.live:  # what a step might leave: any bytes
+                v.copy_(torch.randint(0, 256, v.shape, dtype=torch.uint8, device="cuda",
+                                      generator=gen))
+            stepped = [v.clone() for v in table.live]
+            gate.gate_restore_cuda(table, valid, restores)
+            got = [v.clone() for v in table.live]
+            for v, b in zip(table.live, stepped):
+                v.copy_(b)
+            gate.gate_restore_plain(twin, valid, plain_restores)
+            want = original if restored else stepped
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"gate {name}: restore at valid count {count} is not the "
+                  f"{'snapshot' if restored else 'step'}'s bytes")
+            check(all(torch.equal(a, b) for a, b in zip(got, twin.live)),
+                  f"gate {name}: restore at valid count {count} differs from the plain version")
+            for v, b in zip(table.live, original):
+                v.copy_(b)
+        check(int(restores) == int(plain_restores) == 2,
+              f"gate {name}: restores {int(restores)}, plain {int(plain_restores)}, expected 2")
+        check(counts()["G"] == 1 and counts()["GR"] == 3, f"gate {name}: launches {counts()}")
+        one = torch.ones((), device="cuda")
+        zero = torch.zeros((), device="cuda")
+        snapshot_ms = time_ms(lambda: gate.gate_snapshot_cuda(table), GATE_REPS)
+        restore_valid_ms = time_ms(lambda: gate.gate_restore_cuda(table, one, restores),
+                                   GATE_REPS)
+        restore_zero_ms = time_ms(lambda: gate.gate_restore_cuda(table, zero, restores),
+                                  GATE_REPS)
+        plain_ms = time_ms(lambda: gate.gate_snapshot_plain(table), GATE_LOOP_REPS)
+        sources = [t.detach() for t in tensors]
+        copies = [t.clone() for t in sources]
+        library_ms = time_ms(lambda: torch._foreach_copy_(copies, sources), GATE_REPS)
+        del sources, copies
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GATE_LOOP_REPS):
+            per_tensor_gate(tensors, one)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3 / GATE_LOOP_REPS
+        bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        check(all(torch.equal(a, b) for a, b in zip(table.live, original)),
+              f"gate {name}: the timing runs changed the state")
+        print(f"gate: {name}, {len(tensors)} gated tensors in {table.ranges} ranges, "
+              f"{nbytes:,} bytes, {table.chunks} chunks of {gate.CHUNK} on {table.grid} "
+              f"blocks: snapshot {1e3 * snapshot_ms:.1f} us (bound {1e3 * bound_ms:.1f} us, "
+              f"{100 * bound_ms / snapshot_ms:.1f}%), restore at a valid batch "
+              f"{1e3 * restore_valid_ms:.1f} us, restoring {1e3 * restore_zero_ms:.1f} us; "
+              f"plain snapshot {plain_ms:.3f} ms; per-tensor clone + where + copy_ "
+              f"{loop_ms:.3f} ms a step (host clock); torch._foreach_copy_ "
+              f"{1e3 * library_ms:.1f} us; bitwise the plain version at valid count 1, 0 "
+              f"and NaN, restores counted 2 ok ({card()})")
+        results[name] = {"tensors": len(tensors), "ranges": table.ranges, "bytes": nbytes,
+                         "ms": snapshot_ms, "restore_valid_ms": restore_valid_ms,
+                         "restore_ms": restore_zero_ms, "plain_ms": plain_ms,
+                         "loop_ms": loop_ms, "library_ms": library_ms, "bound_ms": bound_ms}
+        del state, tensors, table, twin, original
+    torch.cuda.empty_cache()
+
+    model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
+    state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0)
+    step = make_train_step(AugmentConfig())
+    batch = {"input": torch.randint(0, 256, (4, *HW, 6), dtype=torch.uint8, device="cuda",
+                                    generator=gen),
+             "target": torch.rand((4, *HW), device="cuda", generator=gen) * 63.5 + 0.5}
+    empty = {"input": batch["input"], "target": torch.zeros_like(batch["target"])}
+    reset_counts()
+    for i in range(5):
+        if i == 2:
+            before = [t.clone() for t in train_step._gated_tensors(state)]
+        state, stats = step(state, empty if i == 2 else batch)
+        if i == 2:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(train_step._gated_tensors(state), before)),
+                  "gate: the zero-valid step changed the state")
+    torch.cuda.synchronize()
+    got = {k: counts()[k] for k in ("G", "GR")}
+    check(got == {"G": 5, "GR": 5}, f"gate: launches in 5 steps {got}")
+    check(int(state.gate.restores) == 1 and state.gate.builds == 1,
+          f"gate: {int(state.gate.restores)} restores and {state.gate.builds} tables in 5 "
+          "steps with one zero-valid batch")
+    print("gate steps: StereoUNet base 32 bf16, batch 4, 5 augmented steps, the third with "
+          "no valid pixel: snapshot 5 and restore 5 launches, restores 1, one table, the "
+          "zero-valid step a no-op ok")
+    return results
 
 
 @functools.cache
@@ -3910,6 +4074,8 @@ def run_all(caches: Path) -> int:
     mark("cost volume check and timing")
     psm = phase_psmnet()
     mark("PSMNet")
+    gate_times = phase_gate()
+    mark("gate")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         # The trainer and the serving CLIs as a user runs them, without
         # cuDNN's autotuning (none of them turns it on).
@@ -4003,6 +4169,25 @@ def run_all(caches: Path) -> int:
             "launches": psm["launches"][name],
             "bound_by": "bytes",
             **cv_times[way],
+        })
+    # The zero-valid gate: the snapshot and the restore over each full-width
+    # gated set, launched once each a train step of every training path; the
+    # library call is torch._foreach_copy_ of the set, which the port never
+    # calls, and loop_ms the per-tensor clone, where and copy_ they replaced.
+    for fn, name in (("gate_snapshot", "G"), ("gate_restore", "GR")):
+        kernels.append({
+            "name": fn,
+            "route": "cuda",
+            "source": "stereo_depth_estimation_tpu_torch/csrc/gate.cu",
+            "replaces": "none (the JAX train step's jax.tree.map(keep_if_valid, ...), "
+                        "stereo_depth_estimation_tpu/parallel/train_step.py:205-216, "
+                        "an XLA fusion)",
+            "launches": main_counts[name],
+            "psmnet_launches": psm["launches"][name],
+            "compiled_launches": compiled["launches"][name],
+            "train_loop_launches": loop["counts"][name],
+            "bound_by": "bytes",
+            "sets": gate_times,
         })
     # K2 also runs every serving forward (float32): its launches there and
     # its times at the serving shapes, summed over the four levels.

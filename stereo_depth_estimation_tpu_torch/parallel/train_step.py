@@ -9,7 +9,7 @@ outputs from its ``step_loss`` (the StereoUNet: the forward with
 uncertainty and the masked Laplace NLL; PSMNet: three outputs and the
 weighted smooth L1). Nothing in the step waits for the host: the loss
 statistics come back as device tensors, the learning rate is computed on
-the device from AdamW's own step count, and the no-op gate selects on the
+the device from AdamW's own step count, and the no-op gate decides on the
 device. ``make_device_data_train_loop`` runs K such
 steps over a device-resident payload per call and stacks their stats on the
 device (JAX ``make_device_data_train_loop``).
@@ -24,6 +24,14 @@ Under a ``torch.profiler`` capture the step's stages are spans
 ``train.forward``, ``train.loss``, ``train.backward``, ``train.optimizer``
 and ``train.gate.select``; a device-resident step's gather is
 ``train.gather``, before its ``train.step``.
+
+The zero-valid gate (``ops/gate.py``) is the state's ``ZeroValidGate``: a
+table of the gated tensors' byte ranges and one flat snapshot buffer, built
+at the first step and again only when those tensors' memory changes. On
+CUDA it is two launches a step of ``csrc/gate.cu``: the snapshot copies
+every range into the buffer before the forward, and the restore, after
+AdamW, reads the valid count on the device and copies the ranges back only
+when it is not > 0 (NaN included); on the CPU, the plain versions.
 
 On a mesh of several ranks (``parallel/mesh.py``) each rank runs this step on
 its stripe of the global batch, with the JAX package's global semantics: the
@@ -63,7 +71,7 @@ the no-op gate and AdamW stay eager. On several ranks
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -73,6 +81,7 @@ from torch import nn
 from ..models.unet import StereoUNet
 from ..ops.augment import AugmentConfig, augment_stereo_batch
 from ..ops.augment_cuda import augment_stereo_batch_fused
+from ..ops.gate import ZeroValidGate
 from ..ops.halo import Stripe
 from ..ops.loss import LossStats
 from ..spans import span
@@ -92,6 +101,8 @@ class TrainState:
     # Compiled: torch.compile(model), which the steps run (inside the replica
     # on several ranks). Checkpoints read ``model``, whose keys are plain.
     compiled: nn.Module | None = None
+    # The zero-valid gate's table, snapshot buffer and restore counter.
+    gate: ZeroValidGate = field(default_factory=ZeroValidGate)
 
 
 @dataclass(frozen=True)
@@ -272,11 +283,18 @@ def _targets_and_mask(batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _gated_tensors(state: TrainState) -> list[torch.Tensor]:
     """Everything a step changes that a zero-valid batch must leave as it was:
-    parameters, BatchNorm buffers, AdamW moments and step counts."""
-    tensors = [p.detach() for p in state.model.parameters()]
-    tensors += list(state.model.buffers())
+    parameters, BatchNorm buffers, AdamW moments and step counts. The gate
+    gathers these every step, so the walk reads the modules' own dicts
+    (``modules()`` would also build every module's name)."""
+    tensors, modules = [], [state.model]
+    for module in modules:  # the list grows as the walk goes down the tree
+        if module is not None:
+            tensors += module._parameters.values()
+            tensors += module._buffers.values()
+            modules += module._modules.values()
+    tensors = [t for t in tensors if t is not None]
     for p_state in state.optimizer.state.values():
-        tensors += [p_state["exp_avg"], p_state["exp_avg_sq"], p_state["step"]]
+        tensors += p_state["exp_avg"], p_state["exp_avg_sq"], p_state["step"]
     return tensors
 
 
@@ -338,13 +356,14 @@ def make_train_step(
 
             # Zero-valid-batch no-op, decided on the device without a host sync:
             # snapshot what the step changes (BatchNorm running stats change
-            # inside forward, so before it), run the step, then select old or new
-            # per tensor on valid_count > 0. It costs one copy and one select of
-            # the weights and the two Adam moments (~93 MB each way at base 32),
-            # where reading valid_count on the host would stall the step.
+            # inside forward, so before it) into the gate's buffer, run the
+            # step, then restore from it unless valid_count > 0. On CUDA one
+            # launch each (ops/gate.py): the snapshot moves the weights and the
+            # two Adam moments once (~93 MB at base 32), the restore only reads
+            # valid_count on a batch with valid pixels, where reading it on the
+            # host would stall the step.
             with span("train.gate.snapshot"):
-                gated = _gated_tensors(state)
-                snapshot = [t.clone() for t in gated]
+                state.gate.snapshot(_gated_tensors(state))
 
             model.train()
             with span("train.forward"):
@@ -366,10 +385,8 @@ def make_train_step(
                 _set_learning_rate(optimizer)
                 optimizer.step()
 
-            with span("train.gate.select"), torch.no_grad():
-                has_valid = stats.valid_count > 0
-                for live, old in zip(gated, snapshot):
-                    live.copy_(torch.where(has_valid, live, old))
+            with span("train.gate.select"):
+                state.gate.restore(stats.valid_count)
             state.step += 1
             return state, LossStats(*(s.detach() for s in stats))
 
