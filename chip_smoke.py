@@ -75,14 +75,10 @@ initialisers and, bitwise, to the one built on the CPU from the same seed
   caches of its own, which must load every graph from the blob. Inductor's
   and Triton's caches point at a fresh directory under ``build/`` for the
   whole run, so the first compile is cold, and are removed at the end;
-- the StereoUNet's off-default knobs (``fused_block``, ``skip_impl`` split
-  and hybrid, ``bn_stats_dtype`` bfloat16, ``remat``) and flat AdamW at the
-  main path's setting, each from the default model's weights: one forward
-  and backward held against the default model's (flat AdamW: its second
-  step against AdamW's), a planted fault (a hybrid backward that swaps its
-  two input gradients) that the check must catch, ``remat`` also against
-  the default model in float32 with the BatchNorm running statistics after
-  the step, then timed steps with their launches and peak memory (every
+- the StereoUNet's one constructor mode beyond width, dtype and ranks,
+  ``bn_stats_dtype`` bfloat16, at the main path's setting from the default
+  model's weights: one forward and backward held against the default
+  model's, then timed steps with their launches and peak memory (every
   training model runs its 18 BatchNorms a step on BN1-BN4; the two-rank and
   spatial phases' models also launch the epilogue alone, "BNE", after each
   all-reduce);
@@ -94,8 +90,8 @@ initialisers and, bitwise, to the one built on the CPU from the same seed
   hot reload, and a child process with empty Inductor and Triton caches that
   loads all three from the blobs the first process saved;
 - the zero-valid gate (``csrc/gate.cu``): its snapshot and restore kernels
-  against the plain versions, bitwise, over the StereoUNet's (AdamW and
-  FlatAdamW) and PSMNet's full-width gated sets at a valid count of 1, 0 and
+  against the plain versions, bitwise, over the StereoUNet's and PSMNet's
+  full-width gated sets at a valid count of 1, 0 and
   NaN, timed beside their byte bound, the per-tensor loop they replaced and
   ``torch._foreach_copy_``; then five train steps with one zero-valid batch
   and its ``restores`` counter. Every training path above launches each of
@@ -144,7 +140,7 @@ from stereo_depth_estimation_tpu_torch.data.samples import discover_samples, spl
 from stereo_depth_estimation_tpu_torch.eval import evaluate, predict
 from stereo_depth_estimation_tpu_torch.eval.preview import normalize_map
 from stereo_depth_estimation_tpu_torch.live.depth_live_dl import CheckpointWatcher, LiveDepthEngine
-from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
+from stereo_depth_estimation_tpu_torch.models import StereoUNet
 from stereo_depth_estimation_tpu_torch.models.compat import rescale_resolution_transfer
 from stereo_depth_estimation_tpu_torch.models.psmnet import PSMNet
 from stereo_depth_estimation_tpu_torch.ops import batchnorm, cost_volume, gate, pool
@@ -179,7 +175,6 @@ from stereo_depth_estimation_tpu_torch.parallel import (
     make_train_step,
     train_step,
 )
-from stereo_depth_estimation_tpu_torch.parallel.flat_adamw import make_flat_adamw
 from stereo_depth_estimation_tpu_torch.parallel.distributed import (
     initialize_multihost,
     next_farm_port,
@@ -307,53 +302,22 @@ SP_STATS_RTOL, SP_BN_RTOL, SP_GRAD_RTOL = 1e-6, 5e-6, 0.008
 # engine within SERVE_ATOL (disparity, log-variance) and one level (views).
 SERVE_RAGGED = 50
 LIVE_MODES = ("default", "reduce-overhead")
-# Knobs phase: the StereoUNet's off-default knobs and flat AdamW at the main
-# path's setting (base 32, bf16, batch 128, 240x320, augmented), each from
-# the default model's weights. One forward and backward of each knob's model
-# on one augmented batch is held against the default model's: the summed
-# LossStats within the knob's limit relative and each gradient leaf within
-# its limit of the leaf's norm (floored as GRAD_FLOOR says). Flat AdamW's
-# model is the default one: its second step (LossStats and gradients, after
-# one update by each optimizer from the same state) is held to the same
-# limits against AdamW's. Then KNOB_STEPS train steps each, timed, with peak
-# memory. A hybrid backward that swaps its two input gradients must miss.
+# Knobs phase: the StereoUNet with ``bn_stats_dtype`` bfloat16 at the main
+# path's setting (base 32, bf16, batch 128, 240x320, augmented), from the
+# default model's weights. One forward and backward on one augmented batch
+# is held against the default model's: the summed LossStats within the
+# knob's limit relative and each gradient leaf within its limit of the
+# leaf's norm (floored as GRAD_FLOOR says). Then KNOB_STEPS train steps,
+# timed, with peak memory.
 KNOB_STEPS = 3
 # name -> (the model's keyword arguments, the LossStats limit, the gradient
-# limit). Each limit is set a few times above what an H100 read while the
-# default model ran PyTorch's BatchNorm (LossStats 1.9e-6, 5.7e-6, 0, 2.8e-4,
-# 0 and 2.4e-6-4.6e-6; gradients 4.6%, 3.1%, 0.28%, 46.5%, 0 and 1.8-1.9%), or
-# at float noise where it read 0; with every model on BN1-BN4 an H100 read 0,
-# 4.1e-6, 0, 3.4e-5, 0 and 8.3e-7, and 0, 3.1%, 0.27%, 10.7%, 0.22% and 2.3%
-# (PERF.md section 6). The comparisons run on cuDNN's deterministic
-# algorithms, so that a reading repeats; the default model against a copy of
-# itself reads 0 there. remat repeats the default's arithmetic, yet in bf16
-# its weight gradients land on the other side of a bf16 rounding in places
-# (cuDNN sums them in another order there): an H100 read 0 in some calls and
-# 0.195-0.205% of enc1/enc2's norm in others, so its limit is the hybrid's.
-# Its arithmetic is held in float32 instead (REMAT_F32_*). In bf16 the knobs
-# round at other places than the default model (a ReLU input near 0 then takes
-# the other side of the kink); bf16 statistics also compute the BatchNorm
-# backward's cancelling terms from bf16-rounded moments, which moves the first
-# layer's gradient by half its norm: that is the knob's arithmetic, as in the
-# JAX model. The planted hybrid fault read 1.53 of a leaf's norm.
-KNOBS = {
-    "fused_block": ({"fused_block": True}, 2e-5, 0.1),
-    "skip_impl split": ({"skip_impl": "split"}, 2e-5, 0.1),
-    "skip_impl hybrid": ({"skip_impl": "hybrid"}, 1e-5, 0.01),
-    "bn_stats_dtype bf16": ({"bn_stats_dtype": torch.bfloat16}, 1e-3, 1.0),
-    "remat": ({"remat": True}, 1e-6, 0.01),
-    "flat AdamW": ({}, 1e-5, 0.05),
-}
-# remat against the default model in float32 (TF32 off, cuDNN's
-# deterministic algorithms, cuDNN's heuristics in place of autotuning), on
-# the first REMAT_F32_BATCH pairs of the knobs' batch: the summed LossStats
-# relative, each gradient leaf relative to its norm (floored as GRAD_FLOOR
-# says) and each BatchNorm running statistic after the step relative to its
-# norm. Float32 cuDNN algorithms part by 1e-7-6e-7 of a leaf's norm on an
-# H100; a recompute that updates the running statistics a second time moves
-# them by the momentum's share of the batch's.
-REMAT_F32_BATCH = 16
-REMAT_F32_STATS_RTOL, REMAT_F32_GRAD_RTOL, REMAT_F32_BN_RTOL = 1e-6, 1e-5, 1e-6
+# limit). With every model on BN1-BN4 an H100 read 3.4e-5 and 10.7%; the
+# comparisons run on cuDNN's deterministic algorithms, so that a reading
+# repeats, and the default model against a copy of itself reads 0 there. bf16 statistics compute the BatchNorm backward's
+# cancelling terms from bf16-rounded moments, which moves the first layer's
+# gradient by half its norm: that is the knob's arithmetic, as in the JAX
+# model.
+KNOBS = {"bn_stats_dtype bf16": ({"bn_stats_dtype": torch.bfloat16}, 1e-3, 1.0)}
 # The train step before the pools ran on K2/K3, same path and card
 # (PERF.md section 5, H100 80GB HBM3 at 700 W).
 BEFORE_POOL_KERNELS = "103.60 ms/step, peak memory 15.04 GiB"
@@ -2126,78 +2090,11 @@ def knob_gaps(want, got) -> tuple[float, float, str]:
     return stats_gap, gap, leaf
 
 
-def knob_gaps_all(default: StereoUNet, build, inputs: torch.Tensor, target: torch.Tensor,
-                  mask: torch.Tensor, batch: dict) -> tuple[dict, tuple[float, float, str]]:
-    """Each of KNOBS against the default model on one augmented batch (flat
-    AdamW: the second step against AdamW's), and the planted hybrid fault:
-    the knobs' gaps and the fault's."""
-    want = knob_forward_backward(default, inputs, target, mask)
-    floor = knob_gaps(want, knob_forward_backward(build({}), inputs, target, mask))
-
-    def two_steps(factory) -> tuple[list[float], dict]:
-        model = build({})
-        state = create_train_state(model, factory(model.parameters(), 1e-3, 1e-4), seed=0)
-        step = make_train_step(AugmentConfig())
-        step(state, batch)
-        _, stats = step(state, batch)
-        return ([float(s) for s in stats],
-                {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
-
-    results = {}
-    adamw_second = two_steps(make_adamw)
-    for name, (kwargs, _, _) in KNOBS.items():
-        if name == "flat AdamW":
-            gaps = knob_gaps(adamw_second, two_steps(make_flat_adamw))
-        else:
-            gaps = knob_gaps(want, knob_forward_backward(build(kwargs), inputs, target, mask))
-        results[name] = {"stats_gap": gaps[0], "grad_gap": gaps[1], "leaf": gaps[2]}
-
-    # The planted fault: a hybrid backward that swaps its input gradients.
-    real = unet._ConcatConv.backward
-
-    def swapped(ctx, dz):
-        d_up, d_skip, dw, none = real(ctx, dz)
-        return d_skip, d_up, dw, none
-
-    unet._ConcatConv.backward = staticmethod(swapped)
-    try:
-        fault = knob_gaps(want, knob_forward_backward(build({"skip_impl": "hybrid"}), inputs,
-                                                      target, mask))
-    finally:
-        unet._ConcatConv.backward = staticmethod(real)
-    return results, fault, floor
-
-
-def remat_in_f32(weights: dict, inputs: torch.Tensor, target: torch.Tensor,
-                 mask: torch.Tensor) -> dict:
-    """remat against the default model in float32 on the first
-    REMAT_F32_BATCH pairs (the caller sets cuDNN's deterministic algorithms):
-    the gaps of the LossStats, the gradients and the BatchNorm running
-    statistics after the step."""
-    runs = []
-    for remat in (False, True):
-        model = StereoUNet(base_channels=32, device="cuda", remat=remat)
-        model.load_state_dict(weights)
-        n = REMAT_F32_BATCH
-        stats, grads = knob_forward_backward(model, inputs[:n].float(), target[:n], mask[:n])
-        running = {k: v.float().cpu() for k, v in model.state_dict().items()
-                   if "running_" in k}
-        runs.append(((stats, grads), running))
-        del model
-    (plain, plain_bn), (remat, remat_bn) = runs
-    stats_gap, grad_gap, leaf = knob_gaps(plain, remat)
-    bn_gap, buffer = max((float((remat_bn[k] - v).norm()) / max(float(v.norm()), 1e-12), k)
-                         for k, v in plain_bn.items())
-    return {"stats_gap": stats_gap, "grad_gap": grad_gap, "leaf": leaf, "bn_gap": bn_gap,
-            "buffer": buffer}
-
-
 def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
     """Each of KNOBS at the main path's setting from the default model's
     weights: one forward and backward held against the default model's on
-    one augmented batch (flat AdamW: the second step against AdamW's), a
-    planted hybrid fault that must miss, remat in float32 (``remat_in_f32``),
-    then KNOB_STEPS timed train steps with their launches and peak memory."""
+    one augmented batch, then KNOB_STEPS timed train steps with their
+    launches and peak memory."""
     default = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
     weights = {k: v.clone() for k, v in default.state_dict().items()}
     gen = torch.Generator(device="cuda")
@@ -2217,20 +2114,21 @@ def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
     # readings repeat; the timed steps below run the autotuned ones.
     torch.backends.cudnn.deterministic = True
     try:
-        results, fault, floor = knob_gaps_all(default, build, inputs, target, mask, batch)
-        torch.backends.cudnn.benchmark = False
-        remat32 = remat_in_f32(weights, inputs, target, mask)
+        want = knob_forward_backward(default, inputs, target, mask)
+        floor = knob_gaps(want, knob_forward_backward(build({}), inputs, target, mask))
+        results = {}
+        for name, (kwargs, _, _) in KNOBS.items():
+            gaps = knob_gaps(want, knob_forward_backward(build(kwargs), inputs, target, mask))
+            results[name] = {"stats_gap": gaps[0], "grad_gap": gaps[1], "leaf": gaps[2]}
     finally:
         torch.backends.cudnn.deterministic = False
-        torch.backends.cudnn.benchmark = True
 
     # The default model first and last: the spread of the two readings is
     # the drift of the call.
     for name, (kwargs, _, _) in {"default": ({}, 0, 0), **KNOBS,
                                  "default again": ({}, 0, 0)}.items():
         model = build(kwargs)
-        factory = make_flat_adamw if name == "flat AdamW" else make_adamw
-        state = create_train_state(model, factory(model.parameters(), 1e-3, 1e-4), seed=0)
+        state = create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4), seed=0)
         step = make_train_step(AugmentConfig())
         step(state, batch)
         torch.cuda.synchronize()
@@ -2243,12 +2141,8 @@ def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
         end.record()
         torch.cuda.synchronize()
         run_counts = counts()
-        # Every model runs its 18 BatchNorms on BN1-BN4; remat runs each
-        # block's forward again in the backward (BN1, BN2).
-        expected = train_launches(KNOB_STEPS)
-        if "remat" in kwargs:
-            expected.update(BN1=36 * KNOB_STEPS, BN2=36 * KNOB_STEPS)
-        expected = expect_launches(**expected)
+        # Every model runs its 18 BatchNorms on BN1-BN4.
+        expected = expect_launches(**train_launches(KNOB_STEPS))
         check(run_counts == expected, f"knob {name}: launches {run_counts}, expected {expected}")
         check(math.isfinite(metrics_from_stats(stats)["loss"]), f"knob {name}: loss {stats}")
         results.setdefault(name, {}).update(
@@ -2261,37 +2155,22 @@ def phase_knobs(images: torch.Tensor, targets: torch.Tensor) -> dict:
           f"{results['default again']['ms']:.2f} last, peak {base['peak_gib']:.2f} GiB")
     for name, (_, stats_tol, grad_tol) in KNOBS.items():
         r = results[name]
-        against = "AdamW's second step" if name == "flat AdamW" else "the default model"
-        print(f"knobs: {name}: vs {against} (base 32 bf16, batch {BATCH}, {HW[0]}x{HW[1]}, "
-              f"one augmented batch): LossStats within {r['stats_gap']:.3g} (tol "
-              f"{stats_tol:g}), gradients within {r['grad_gap']:.3g} of their norm (largest "
-              f"in {r['leaf']}; tol {grad_tol:g}); {KNOB_STEPS} augmented steps "
+        print(f"knobs: {name}: vs the default model (base 32 bf16, batch {BATCH}, "
+              f"{HW[0]}x{HW[1]}, one augmented batch): LossStats within {r['stats_gap']:.3g} "
+              f"(tol {stats_tol:g}), gradients within {r['grad_gap']:.3g} of their norm "
+              f"(largest in {r['leaf']}; tol {grad_tol:g}); {KNOB_STEPS} augmented steps "
               f"{r['ms']:.2f} ms/step ({base['ms'] / r['ms']:.3f}x the default's "
               f"{base['ms']:.2f}), peak {r['peak_gib']:.2f} GiB (default "
               f"{base['peak_gib']:.2f}); launches {r['counts']}")
     print(f"knobs: the default model against a copy of itself (the comparisons' floor, "
           f"cuDNN's deterministic algorithms): LossStats within {floor[0]:.3g}, gradients "
           f"within {floor[1]:.3g} of their norm (largest in {floor[2]})")
-    print(f"knobs: remat in float32 (TF32 off, the first {REMAT_F32_BATCH} pairs): LossStats "
-          f"within {remat32['stats_gap']:.3g} (tol {REMAT_F32_STATS_RTOL:g}), gradients within "
-          f"{remat32['grad_gap']:.3g} of their norm (largest in {remat32['leaf']}; tol "
-          f"{REMAT_F32_GRAD_RTOL:g}), BatchNorm running statistics after the step within "
-          f"{remat32['bn_gap']:.3g} (largest in {remat32['buffer']}; tol "
-          f"{REMAT_F32_BN_RTOL:g})")
-    hybrid_tol = KNOBS["skip_impl hybrid"][2]
-    print(f"knobs: planted fault, a hybrid backward that swaps its two input gradients: "
-          f"gradients off by {fault[1]:.3g} of their norm (in {fault[2]}), "
-          f"{fault[1] / hybrid_tol:.1f}x the hybrid limit")
     for name, (_, stats_tol, grad_tol) in KNOBS.items():
         r = results[name]
         check(r["stats_gap"] <= stats_tol and r["grad_gap"] <= grad_tol,
               f"knob {name}: LossStats {r['stats_gap']:.3g} (tol {stats_tol:g}), gradient of "
               f"{r['leaf']} {r['grad_gap']:.3g} of its norm (tol {grad_tol:g})")
-    check(remat32["stats_gap"] <= REMAT_F32_STATS_RTOL
-          and remat32["grad_gap"] <= REMAT_F32_GRAD_RTOL
-          and remat32["bn_gap"] <= REMAT_F32_BN_RTOL, f"knob remat in float32: {remat32}")
-    check(fault[1] > hybrid_tol, f"the planted hybrid fault reads only {fault[1]:.3g}")
-    print("knobs: every knob within its limits and the planted fault caught ok")
+    print("knobs: every knob within its limits ok")
     return results
 
 
@@ -3092,9 +2971,7 @@ def seeded_model(**kwargs) -> StereoUNet:
     with fan_in = ``weight.shape[1] * kh * kw``, from seed 0 on the CPU: the
     weights every limit of the phases that build their own model was
     measured on. A fresh model of the port draws the JAX package's init
-    (``phase_init``; the trainer's phases run on it); from that init the
-    bf16 knob comparisons read about twice their gaps on these weights
-    (fused_block 0.100 of a leaf's norm, split 0.065, on an H100)."""
+    (``phase_init``; the trainer's phases run on it)."""
     model = StereoUNet(**kwargs)
     generator = torch.Generator().manual_seed(0)
     with torch.no_grad():
@@ -3724,12 +3601,10 @@ GATE_LOOP_REPS = 5
 
 def gate_sets() -> dict[str, TrainState]:
     """Train states whose gated tensors are a training run's: the StereoUNet
-    (base 32, bf16) with AdamW and with FlatAdamW (aliased moment views,
-    one shared count), and PSMNet (channels 32, D 192) with Adam."""
-    states = {}
-    for name, make in (("StereoUNet", make_adamw), ("StereoUNet FlatAdamW", make_flat_adamw)):
-        model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
-        states[name] = create_train_state(model, make(model.parameters(), 1e-3, 1e-4), seed=0)
+    (base 32, bf16) with AdamW, and PSMNet (channels 32, D 192) with Adam."""
+    model = seeded_model(base_channels=32, compute_dtype=torch.bfloat16, device="cuda")
+    states = {"StereoUNet": create_train_state(model, make_adamw(model.parameters(), 1e-3, 1e-4),
+                                               seed=0)}
     model = PSMNet(max_disparity=PSM_DISPARITY, compute_dtype=torch.bfloat16, device="cuda",
                    generator=torch.Generator().manual_seed(0))
     states["PSMNet"] = create_train_state(model, make_adamw(model.parameters(), 1e-3, 0.0),

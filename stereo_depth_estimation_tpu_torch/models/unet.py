@@ -12,7 +12,7 @@ LeCun-normal kernels, zero biases: ``StereoUNet.reset_parameters``).
 
 Parameter names are the reference PyTorch model's (``enc1.block.0.weight``,
 ``up4.weight``, ``disparity_head.weight``, ...), so a reference ``.pt``
-state_dict loads as it is, whatever the knobs below.
+state_dict loads as it is.
 
 ``forward`` takes and returns the JAX package's NHWC layout; inside, the NHWC
 tensor is viewed as NCHW, which is the ``channels_last`` memory format, so no
@@ -42,33 +42,14 @@ the skip concatenations and the 1x1 heads are local to a stripe. With
 rows and stripes. The parameter names stay ``nn.Conv2d``'s. Without a
 spatial group none of this runs.
 
-The JAX model's off-default knobs, each with the same parameters and
-names (none is reached by a CLI; they are execution strategies measured on
-the card):
-
-- ``bn_stats_dtype``: the training batch mean and E[x^2] are reduced in
-  that dtype, then cast to float32 (``MeshBatchNorm2d``, var =
-  E[x^2] - E[x]^2); running statistics and the scale stay float32.
-- ``skip_impl``: how a decoder block's first convolution takes the
-  up-path and skip tensors. ``"concat"`` concatenates them and convolves;
-  ``"split"`` sums two half-kernel convolutions; ``"hybrid"`` convolves
-  the concatenation and computes the two input gradients with half-kernel
-  data-gradient convolutions, never forming the concatenation's gradient
-  (``_ConcatConv``). The weight stays one full-width parameter.
-- ``fused_block``: each training conv3x3 -> batch-stat BatchNorm -> ReLU
-  is one autograd function (``_FusedConvBNReLU``) that saves only the
-  pre-BatchNorm output, the input, the statistics and beta, and
-  recomputes the ReLU mask and the normalised values in its backward. Not
-  with ``skip_impl`` "split" or "hybrid", as in the JAX package.
-- ``remat``: each ConvBlock is recomputed in the backward
-  (``torch.utils.checkpoint``); the recompute leaves the BatchNorm running
-  statistics as the forward left them, as Flax discards the recompute's
-  updates.
+``bn_stats_dtype`` (the JAX model's knob of that name, no CLI sets it):
+the training batch mean and E[x^2] are reduced in that dtype, then cast to
+float32 (``MeshBatchNorm2d``, var = E[x^2] - E[x]^2); running statistics
+and the scale stay float32.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 
@@ -76,7 +57,6 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops import batchnorm
@@ -234,92 +214,15 @@ def _padded(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype autocast runs convolutions in, else ``x``'s."""
-    kind = x.device.type
-    return torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
-
-
-def _conv_grads(dz, x, weight, padding) -> tuple[torch.Tensor, torch.Tensor]:
-    """The data and filter gradients of ``F.conv2d(x, weight, padding=...)``
-    (stride 1, no bias) for the output gradient ``dz``."""
-    dx, dw, _ = torch.ops.aten.convolution_backward(
-        dz, x, weight, None, [1, 1], list(padding), [1, 1], False, [0, 0], 1,
-        [True, True, False])
-    return dx, dw
-
-
-class _ConcatConv(torch.autograd.Function):
-    """``conv2d(cat([up, skip]), weight)`` whose backward takes the two input
-    gradients straight from half-kernel data-gradient convolutions (and the
-    weight's as two half filter gradients), never forming the (N, 2C, H, W)
-    gradient of the concatenation: JAX ``_concat_conv``. The weight is cast
-    to the inputs' dtype."""
-
-    @staticmethod
-    def forward(ctx, up, skip, weight, padding):
-        ctx.save_for_backward(up, skip, weight)
-        ctx.padding = padding
-        return F.conv2d(torch.cat([up, skip], dim=1), weight.to(up.dtype), padding=padding)
-
-    @staticmethod
-    def backward(ctx, dz):
-        up, skip, weight = ctx.saved_tensors
-        xc = up.shape[1]
-        w = weight.to(up.dtype)
-        d_up, dw_up = _conv_grads(dz, up, w[:, :xc], ctx.padding)
-        d_skip, dw_skip = _conv_grads(dz, skip, w[:, xc:], ctx.padding)
-        return d_up, d_skip, torch.cat([dw_up, dw_skip], dim=1).to(weight.dtype), None
-
-
-class _FusedConvBNReLU(torch.autograd.Function):
-    """Training conv3x3 -> batch-stat BatchNorm -> ReLU: JAX
-    ``_fused_conv_bn_relu``. It saves only the pre-BatchNorm output ``z``,
-    the input, the weight, the statistics and beta; the backward recomputes
-    the ReLU mask and the centred ``z`` and feeds one gradient to the
-    convolution's data and filter gradients. The BatchNorm and the ReLU run
-    on the kernels of ``ops/batchnorm.py`` (``_bn_forward``, which updates
-    the ``running`` buffers, and ``_bn_backward``). With ``group`` the
-    statistics' sums, and in the backward the two (C,) gradient sums, are
-    all-reduced (the weight and bias gradients stay this rank's share, as
-    ``MeshBatchNorm2d``'s do)."""
-
-    @staticmethod
-    def forward(ctx, x, weight, gamma, beta, running_mean, running_var, num_batches_tracked,
-                padding, eps, momentum, bf16_stats, group):
-        z = F.conv2d(x, weight.to(x.dtype), padding=padding)
-        y, stats = _bn_forward(z, gamma, beta, (running_mean, running_var, num_batches_tracked),
-                               eps, momentum, bf16_stats, group, relu=True)
-        ctx.save_for_backward(x, weight, z, stats, beta)
-        ctx.padding, ctx.eps, ctx.group = padding, eps, group
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, weight, z, stats, beta = ctx.saved_tensors
-        dz, dgamma, dbeta = _bn_backward(dy, z, stats, beta, ctx.eps, ctx.group, relu=True)
-        dx, dw = _conv_grads(dz, x, weight.to(x.dtype), ctx.padding)
-        return (dx, dw.to(weight.dtype), dgamma, dbeta, None, None, None, None, None, None,
-                None, None)
-
-
 class ConvBlock(nn.Module):
     """(Conv3x3 no-bias -> BatchNorm -> ReLU) x2. ``forward(x, skip)`` of a
-    decoder block takes the up-path and the skip tensors, joined as
-    ``skip_impl`` says; ``fused`` runs each training conv -> BN -> ReLU as
-    ``_FusedConvBNReLU``. The modules are those of the default block (the
-    reference's ``block.0`` ... ``block.5``) in every mode."""
+    decoder block concatenates the up-path and the skip tensors first. The
+    modules are the reference's ``block.0`` ... ``block.5``."""
 
     def __init__(self, in_channels: int, out_channels: int, bn_group=None,
                  spatial_group: SpatialGroup | None = None, *,
-                 bn_stats_dtype: torch.dtype = torch.float32, fused: bool = False,
-                 skip_impl: str = "concat") -> None:
+                 bn_stats_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
-        if skip_impl not in ("concat", "split", "hybrid"):
-            raise ValueError(f"skip_impl must be concat, split or hybrid, got {skip_impl!r}")
-        if fused and skip_impl != "concat":
-            raise ValueError(f"fused_block takes skip_impl 'concat' only, got {skip_impl!r} "
-                             "(as the JAX model asserts)")
         group = bn_group if bn_group is not None and dist.get_world_size(bn_group) > 1 else None
         self.block = nn.Sequential(
             _conv3x3(in_channels, out_channels, spatial_group),
@@ -329,32 +232,11 @@ class ConvBlock(nn.Module):
             MeshBatchNorm2d(out_channels, group, bn_stats_dtype),
             nn.ReLU(inplace=True),
         )
-        self.group = group
-        self.fused = fused
-        self.skip_impl = skip_impl
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
-        if skip is not None and self.skip_impl == "concat":
-            x, skip = torch.cat([x, skip], dim=1), None
-        if self.fused and self.training:
-            for conv, bn in ((self.block[0], self.block[1]), (self.block[3], self.block[4])):
-                x = _FusedConvBNReLU.apply(
-                    _padded(conv, x).to(_compute_dtype(x)), conv.weight, bn.weight, bn.bias,
-                    bn.running_mean, bn.running_var, bn.num_batches_tracked, conv.padding,
-                    bn.eps, bn.momentum, bn.bf16_stats, self.group)
-            return x
-        conv0 = self.block[0]
-        if skip is None:
-            z = conv0(x)
-        elif self.skip_impl == "split":
-            xc = x.shape[1]
-            z = (conv0._conv_forward(_padded(conv0, x), conv0.weight[:, :xc], None)
-                 + conv0._conv_forward(_padded(conv0, skip), conv0.weight[:, xc:], None))
-        else:
-            dtype = _compute_dtype(x)
-            z = _ConcatConv.apply(_padded(conv0, x).to(dtype), _padded(conv0, skip).to(dtype),
-                                  conv0.weight, conv0.padding)
-        y = _bn_relu(self.block[1], self.block[2], z)
+        if skip is not None:
+            x = torch.cat([x, skip], dim=1)
+        y = _bn_relu(self.block[1], self.block[2], self.block[0](x))
         return _bn_relu(self.block[4], self.block[5], self.block[3](y))
 
 
@@ -364,28 +246,6 @@ def _bn_relu(bn: MeshBatchNorm2d, relu: nn.ReLU, z: torch.Tensor) -> torch.Tenso
     if bn.training:
         return bn.forward_relu(z)
     return relu(bn(z))
-
-
-class _KeepRunningStats:
-    """Context of a ConvBlock's recompute under ``remat``: the BatchNorm
-    running statistics (and batch counts) it finds are put back on exit, so
-    the recompute's second train-mode pass updates nothing."""
-
-    def __init__(self, block: nn.Module) -> None:
-        self.buffers = [b for m in block.modules() if isinstance(m, nn.BatchNorm2d)
-                        for b in (m.running_mean, m.running_var, m.num_batches_tracked)]
-
-    def __enter__(self) -> None:
-        self.saved = [b.clone() for b in self.buffers]
-
-    def __exit__(self, *exc) -> None:
-        with torch.no_grad():
-            for b, saved in zip(self.buffers, self.saved):
-                b.copy_(saved)
-
-
-def _remat_contexts(block: nn.Module):
-    return contextlib.nullcontext(), _KeepRunningStats(block)
 
 
 class _Head(nn.Conv2d):
@@ -421,9 +281,6 @@ class StereoUNet(nn.Module):
         bn_group=None,
         spatial_group: SpatialGroup | None = None,
         bn_stats_dtype: torch.dtype = torch.float32,
-        remat: bool = False,
-        fused_block: bool = False,
-        skip_impl: str = "concat",
     ) -> None:
         """Every parameter is drawn as the JAX package draws a fresh model
         (``reset_parameters``), from ``generator`` (a CPU generator) if
@@ -431,34 +288,31 @@ class StereoUNet(nn.Module):
         ``bn_group``: a ``torch.distributed`` group; with more than one rank
         the BatchNorm statistics are global over it (``MeshBatchNorm2d``).
         ``spatial_group``: with more than one rank the model runs on height
-        stripes (``HaloConv2d``). ``bn_stats_dtype``, ``remat``,
-        ``fused_block`` and ``skip_impl``: the JAX model's knobs (module
-        docstring); ``fused_block`` with another ``skip_impl`` than
-        ``"concat"`` raises."""
+        stripes (``HaloConv2d``). ``bn_stats_dtype``: the dtype of the
+        training BatchNorm sums (module docstring)."""
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.compute_dtype = compute_dtype
-        self.remat = remat
         c1 = base_channels
         c2, c3, c4, c5 = c1 * 2, c1 * 4, c1 * 8, c1 * 16
         block = functools.partial(ConvBlock, bn_group=bn_group, spatial_group=spatial_group,
-                                  bn_stats_dtype=bn_stats_dtype, fused=fused_block)
+                                  bn_stats_dtype=bn_stats_dtype)
         self.enc1 = block(in_channels, c1)
         self.enc2 = block(c1, c2)
         self.enc3 = block(c2, c3)
         self.enc4 = block(c3, c4)
         self.bottleneck = block(c4, c5)
         self.up4 = nn.ConvTranspose2d(c5, c4, 2, stride=2)
-        self.dec4 = block(c4 + c4, c4, skip_impl=skip_impl)
+        self.dec4 = block(c4 + c4, c4)
         self.up3 = nn.ConvTranspose2d(c4, c3, 2, stride=2)
-        self.dec3 = block(c3 + c3, c3, skip_impl=skip_impl)
+        self.dec3 = block(c3 + c3, c3)
         self.up2 = nn.ConvTranspose2d(c3, c2, 2, stride=2)
-        self.dec2 = block(c2 + c2, c2, skip_impl=skip_impl)
+        self.dec2 = block(c2 + c2, c2)
         self.up1 = nn.ConvTranspose2d(c2, c1, 2, stride=2)
-        self.dec1 = block(c1 + c1, c1, skip_impl=skip_impl)
+        self.dec1 = block(c1 + c1, c1)
         # Both heads always exist (the reference model defines both).
         self.disparity_head = _Head(c1, out_channels, 1)
         self.logvar_head = _Head(c1, 1, 1)
@@ -514,16 +368,15 @@ class StereoUNet(nn.Module):
             dtype=torch.bfloat16,
             enabled=self.compute_dtype == torch.bfloat16,
         ):
-            run = self._run
-            s1 = run(self.enc1, x)
-            s2 = run(self.enc2, max_pool_2x2(s1))
-            s3 = run(self.enc3, max_pool_2x2(s2))
-            s4 = run(self.enc4, max_pool_2x2(s3))
-            b = run(self.bottleneck, max_pool_2x2(s4))
-            d4 = run(self.dec4, self.up4(b), s4)
-            d3 = run(self.dec3, self.up3(d4), s3)
-            d2 = run(self.dec2, self.up2(d3), s2)
-            d1 = run(self.dec1, self.up1(d2), s1)
+            s1 = self.enc1(x)
+            s2 = self.enc2(max_pool_2x2(s1))
+            s3 = self.enc3(max_pool_2x2(s2))
+            s4 = self.enc4(max_pool_2x2(s3))
+            b = self.bottleneck(max_pool_2x2(s4))
+            d4 = self.dec4(self.up4(b), s4)
+            d3 = self.dec3(self.up3(d4), s3)
+            d2 = self.dec2(self.up2(d3), s2)
+            d1 = self.dec1(self.up1(d2), s1)
             disp_pre = self.disparity_head(d1)
             logvar_pre = self.logvar_head(d1) if return_uncertainty else None
         # Head nonlinearities in float32 (disparity >= 0, logvar bounded).
@@ -540,21 +393,6 @@ class StereoUNet(nn.Module):
         disparity and log-variance (``ops/loss.py``)."""
         disp, logvar = outputs
         return heteroscedastic_laplace_nll(disp[..., 0], logvar[..., 0], target, mask)
-
-
-    def _run(self, block: ConvBlock, *inputs: torch.Tensor) -> torch.Tensor:
-        """``block(*inputs)``; under ``remat`` in training, recomputed in the
-        backward with the running statistics kept (``_KeepRunningStats``)."""
-        if self.remat and self.training and torch.is_grad_enabled():
-            if torch.compiler.is_compiling():
-                # Traced, the recompute is part of the backward graph, and
-                # AOTAutograd applies the block's running-statistic updates
-                # once, from the forward; a context_fn there must be a pair
-                # of dispatch modes.
-                return checkpoint(block, *inputs, use_reentrant=False)
-            return checkpoint(block, *inputs, use_reentrant=False,
-                              context_fn=functools.partial(_remat_contexts, block))
-        return block(*inputs)
 
 
 def count_params(model: nn.Module) -> int:

@@ -5,8 +5,7 @@ The JAX package leaves this arithmetic to XLA, which fuses it into the
 neighbouring ops (``stereo_depth_estimation_tpu/models/unet.py:67-70`` and
 ``:86-88``, the flax BatchNorm; ``:133-138`` and ``:183-200``, the fused
 block). The port computes every training BatchNorm on four kernels
-(``models/unet.py``: ``MeshBatchNorm2d``, with the ReLU after it, and
-``_FusedConvBNReLU``):
+(``models/unet.py``: ``MeshBatchNorm2d``, with the ReLU after it):
 
 - BN1 ``bn_stats``: per-channel sum and sum of squares and the element
   count, (2C + 1) float32; with ``bf16_stats`` each sum is n times the

@@ -9,9 +9,8 @@ after AdamW when the count is not > 0 (NaN included), the JAX package's
 
 - ``build_table``: from the gated tensors (dense and non-overlapping, one
   device, any dtype), a ``GateTable`` of byte ranges: tensors that share
-  memory (``FlatAdamW``'s moment views of two flat buffers, its one count
-  listed under every parameter) are taken once, overlapping and touching
-  ranges of one storage merged. Each range has a slot in one flat snapshot
+  memory (views of one buffer, or one tensor listed twice) are taken once,
+  overlapping and touching ranges of one storage merged. Each range has a slot in one flat snapshot
   buffer, 16-byte aligned and shifted by the range's address mod 16; on CUDA
   the table of ranges and chunks is copied to the card once, from pinned
   memory, without a synchronise.

@@ -11,9 +11,12 @@ The same numpy inputs go through both. Tolerances:
   bf16 ulp of each mean (both round the float32 mean to bf16, and a mean
   within float noise of a rounding boundary goes the other way);
 - ``_BatchNormReLU`` forward and backward against the flax ``BatchNorm`` +
-  ReLU under ``jax.vjp``, and ``_FusedConvBNReLU`` against JAX
-  ``_fused_conv_bn_relu`` (matmul precision highest), float32: 1e-5 of each
-  output's largest magnitude (sums in another order; measured ~1e-7);
+  ReLU under ``jax.vjp``, float32: 1e-5 of each output's largest magnitude
+  (sums in another order; measured ~1e-7);
+- those three at each of SHAPES: the StereoUNet's 6 channels, 4 channels at
+  batch 1, 36 channels over a row count that is no multiple of a power of
+  two, and a channels_last_3d (N, C, D, H, W) volume as PSMNet's BatchNorms
+  take it (the flax BatchNorm sees its rows as (N * D, H, W, C));
 - the folded epilogue's plain version against the textbook formulas below
   (``_moments``, ``_scale``, ``_update_running``, ``_dz_coefficients``) on
   the same sums: bitwise, but for the values through 1 / sqrt(var + eps),
@@ -25,7 +28,14 @@ The same numpy inputs go through both. Tolerances:
   the same order);
 - a ConvBlock and a whole default StereoUNet in training against copies
   whose BatchNorms are ``nn.BatchNorm2d`` then ReLU: within 1e-5
-  (E[x^2] - E[x]^2 against a two-pass variance).
+  (E[x^2] - E[x]^2 against a two-pass variance);
+- a base-4 StereoUNet with ``bn_stats_dtype=bfloat16`` against the JAX
+  model with it, from the JAX init (train-mode outputs, the gradients of one
+  loss, the running statistics): BF16_TOL = 2e-2 on outputs, on gradients
+  (of the largest) and on running statistics. Both round each layer's mean
+  and mean square to bfloat16 (2^-9 relative); a statistic within float
+  noise of a rounding boundary rounds the other way in the other framework,
+  and the network amplifies that step. Measured 6.8e-3, 5.0e-3 and 3.4e-3.
 """
 
 from copy import deepcopy as copy_module
@@ -36,9 +46,14 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_depth_estimation_tpu.models import StereoUNet as JaxUNet
 from stereo_depth_estimation_tpu.models import unet as J
 from stereo_depth_estimation_tpu_torch.models import ConvBlock, StereoUNet
 from stereo_depth_estimation_tpu_torch.models import unet as U
+from stereo_depth_estimation_tpu_torch.models.compat import (
+    load_torch_state_dict,
+    state_dict_from_jax,
+)
 from stereo_depth_estimation_tpu_torch.ops import batchnorm
 
 EPS = 1e-5
@@ -46,6 +61,10 @@ MOMENTUM = 0.1
 TOL = 1e-5
 COMPILE_TOL = 1e-6
 EPILOGUE_RTOL = 1e-6  # a few float32 ulps
+BF16_TOL = 2e-2
+# Channels-last activations (N, H, W, C) and a volume (N, D, H, W, C).
+SHAPES = {"c6": (2, 12, 20, 6), "c4_batch1": (1, 12, 20, 4), "c36_ragged": (3, 7, 11, 36),
+          "volume": (2, 3, 6, 10, 8)}
 
 
 # The textbook per-channel arithmetic of a batch-statistic BatchNorm, as
@@ -91,12 +110,30 @@ def _x(shape, seed: int, shift: float = 0.7) -> np.ndarray:
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:
-    """NHWC numpy -> the channels_last (N, C, H, W) view the model holds."""
-    return torch.from_numpy(x).permute(0, 3, 1, 2)
+    """NHWC numpy -> the channels_last (N, C, H, W) view the model holds; an
+    NDHWC volume -> its channels_last_3d (N, C, D, H, W) view."""
+    t = torch.from_numpy(x)
+    return t.permute(0, 3, 1, 2) if t.ndim == 4 else t.permute(0, 4, 1, 2, 3)
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_nchw``: channels last again."""
+    return t.permute(0, 2, 3, 1) if t.ndim == 4 else t.permute(0, 2, 3, 4, 1)
+
+
+def _layout(ndim: int) -> torch.memory_format:
+    return torch.channels_last if ndim == 4 else torch.channels_last_3d
+
+
+def _flax_rows(x: np.ndarray) -> np.ndarray:
+    """``x`` as the (N, H, W, C) the flax BatchNorm reduces over its first
+    three axes: a volume's N and D taken together."""
+    return x.reshape(-1, *x.shape[-3:])
 
 
 def _flax_stats(x: np.ndarray, stats_dtype) -> tuple[np.ndarray, np.ndarray]:
     """(mean, biased var) of the flax BatchNorm's training statistics."""
+    x = _flax_rows(x)
     bn = J.BatchNorm(momentum=1.0, stats_dtype=stats_dtype)
     variables = bn.init(jax.random.key(0), jnp.asarray(x), use_running_average=True)
     _, updated = bn.apply(variables, jnp.asarray(x), use_running_average=False,
@@ -107,22 +144,25 @@ def _flax_stats(x: np.ndarray, stats_dtype) -> tuple[np.ndarray, np.ndarray]:
     return mean, var
 
 
-def test_bn_stats_f32_equal_flax_statistics() -> None:
-    x = _x((2, 12, 20, 6), seed=0)
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_bn_stats_f32_equal_flax_statistics(shape) -> None:
+    x = _x(shape, seed=0)
+    c, n = shape[-1], x.size // shape[-1]
     total = batchnorm.bn_stats(batchnorm.rows(_nchw(x)), False)
-    assert total.shape == (13,) and float(total[12]) == 2 * 12 * 20
-    mean, var, _ = _moments(total, 6)
+    assert total.shape == (2 * c + 1,) and float(total[2 * c]) == n
+    mean, var, _ = _moments(total, c)
     want_mean, want_var = _flax_stats(x, jnp.float32)
-    scale = (x.astype(np.float64) ** 2).mean(axis=(0, 1, 2))
+    scale = (_flax_rows(x).astype(np.float64) ** 2).mean(axis=(0, 1, 2))
     np.testing.assert_array_less(np.abs(mean.numpy() - want_mean), 1e-6 * scale)
     np.testing.assert_array_less(np.abs(var.numpy() - want_var), 1e-6 * scale)
 
 
-def test_bn_stats_bf16_means_within_one_ulp_of_flax() -> None:
-    x = _x((2, 12, 20, 6), seed=1)
-    n = 2 * 12 * 20
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_bn_stats_bf16_means_within_one_ulp_of_flax(shape) -> None:
+    x = _x(shape, seed=1)
+    c, n = shape[-1], x.size // shape[-1]
     total = batchnorm.bn_stats(batchnorm.rows(_nchw(x)), True)
-    mean, mean_sq = (total[:6] / n).numpy(), (total[6:12] / n).numpy()
+    mean, mean_sq = (total[:c] / n).numpy(), (total[c:2 * c] / n).numpy()
     want_mean, want_var = _flax_stats(x, jnp.bfloat16)
     want_sq = want_var + want_mean.astype(np.float64) ** 2
     for got, want in ((mean, want_mean), (mean_sq, want_sq)):
@@ -135,18 +175,22 @@ def test_bn_stats_bf16_means_within_one_ulp_of_flax() -> None:
 def _flax_bn_relu(x, scale, bias, dy, relu: bool):
     """flax BatchNorm (+ ReLU) under jax.vjp: y, the gradients of x, the
     scale and the bias for the cotangent ``dy``, and the running mean and
-    var after the step."""
+    var after the step; y and the gradient of x in ``x``'s shape."""
     bn = J.BatchNorm()
+    c = x.shape[-1]
 
     def f(xx, s, b):
         variables = {"params": {"scale": s, "bias": b},
-                     "batch_stats": {"mean": jnp.zeros(6), "var": jnp.ones(6)}}
+                     "batch_stats": {"mean": jnp.zeros(c), "var": jnp.ones(c)}}
         y, updated = bn.apply(variables, xx, use_running_average=False,
                               mutable=["batch_stats"])
         return (jax.nn.relu(y) if relu else y), updated["batch_stats"]
 
-    y, vjp, running = jax.vjp(f, *map(jnp.asarray, (x, scale, bias)), has_aux=True)
-    return (y, *vjp(jnp.asarray(dy)), running["mean"], running["var"])
+    y, vjp, running = jax.vjp(f, *map(jnp.asarray, (_flax_rows(x), scale, bias)),
+                              has_aux=True)
+    dx, dscale, dbias = vjp(jnp.asarray(_flax_rows(dy)))
+    return (y.reshape(x.shape), dx.reshape(x.shape), dscale, dbias, running["mean"],
+            running["var"])
 
 
 def _assert_close(got: torch.Tensor, want, what: str) -> None:
@@ -156,65 +200,35 @@ def _assert_close(got: torch.Tensor, want, what: str) -> None:
     assert err <= TOL * scale, f"{what}: {err} of {scale}"
 
 
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
 @pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
-def test_batchnorm_relu_forward_and_backward_equal_flax(relu) -> None:
-    x = _x((2, 12, 20, 6), seed=2)
+def test_batchnorm_relu_forward_and_backward_equal_flax(relu, shape) -> None:
+    x = _x(shape, seed=2)
+    c = shape[-1]
     dy = np.random.default_rng(3).normal(size=x.shape).astype(np.float32)
     rng = np.random.default_rng(4)
-    scale = (1.0 + 0.3 * rng.normal(size=6)).astype(np.float32)
-    bias = (0.3 * rng.normal(size=6)).astype(np.float32)
+    scale = (1.0 + 0.3 * rng.normal(size=c)).astype(np.float32)
+    bias = (0.3 * rng.normal(size=c)).astype(np.float32)
     want = _flax_bn_relu(x, scale, bias, dy, relu)
 
-    xt = _nchw(x).clone(memory_format=torch.channels_last).requires_grad_()
+    layout = _layout(len(shape))
+    xt = _nchw(x).clone(memory_format=layout).requires_grad_()
     gamma = torch.from_numpy(scale).requires_grad_()
     beta = torch.from_numpy(bias).requires_grad_()
-    running_mean, running_var, tracked = _running(6)
+    running_mean, running_var, tracked = _running(c)
     y = U._BatchNormReLU.apply(xt, gamma, beta, running_mean, running_var, tracked, EPS,
                                MOMENTUM, False, None, relu)
-    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert y.is_contiguous(memory_format=layout)
     assert int(tracked) == 1
     y.backward(_nchw(dy))
-    _assert_close(y.permute(0, 2, 3, 1), want[0], "y")
-    _assert_close(xt.grad.permute(0, 2, 3, 1), want[1], "dx")
+    _assert_close(_nhwc(y), want[0], "y")
+    _assert_close(_nhwc(xt.grad), want[1], "dx")
     _assert_close(gamma.grad, want[2], "dscale")
     _assert_close(beta.grad, want[3], "dbias")
     _assert_close(running_mean, want[4], "running mean")
     _assert_close(running_var, want[5], "running var")
     if relu:
         assert float((y == 0).float().mean()) > 0.2  # the mask matters
-
-
-def test_fused_conv_bn_relu_equals_jax_forward_and_vjp() -> None:
-    x = _x((2, 12, 20, 5), seed=5, shift=0.0)
-    rng = np.random.default_rng(6)
-    kernel = (0.3 * rng.normal(size=(3, 3, 5, 6))).astype(np.float32)
-    scale = (1.0 + 0.3 * rng.normal(size=6)).astype(np.float32)
-    bias = (0.3 * rng.normal(size=6)).astype(np.float32)
-    dy = rng.normal(size=(2, 12, 20, 6)).astype(np.float32)
-    cfg = J._FusedBNConfig(eps=EPS, compute_dtype=jnp.float32, stats_dtype=jnp.float32)
-    with jax.default_matmul_precision("highest"):
-        (y, mean, var), vjp = jax.vjp(lambda *a: J._fused_conv_bn_relu(cfg, *a),
-                                      *map(jnp.asarray, (x, kernel, scale, bias)))
-        dx, dkernel, dscale, dbias = vjp((jnp.asarray(dy), jnp.zeros(6), jnp.zeros(6)))
-
-    xt = _nchw(x).clone(memory_format=torch.channels_last).requires_grad_()
-    weight = torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()).requires_grad_()
-    gamma = torch.from_numpy(scale).requires_grad_()
-    beta = torch.from_numpy(bias).requires_grad_()
-    # At momentum 1 the running buffers take the batch's mean and unbiased var.
-    running_mean, running_var, tracked = _running(6)
-    yt = U._FusedConvBNReLU.apply(xt, weight, gamma, beta, running_mean, running_var, tracked,
-                                  (1, 1), EPS, 1.0, False, None)
-    yt.backward(_nchw(dy))
-    n = x.size // 5
-    assert int(tracked) == 1
-    _assert_close(yt.permute(0, 2, 3, 1), y, "y")
-    _assert_close(running_mean, mean, "mean")
-    _assert_close(running_var * ((n - 1) / n), var, "var")
-    _assert_close(xt.grad.permute(0, 2, 3, 1), dx, "dx")
-    _assert_close(weight.grad.permute(2, 3, 1, 0), dkernel, "dkernel")
-    _assert_close(gamma.grad, dscale, "dscale")
-    _assert_close(beta.grad, dbias, "dbias")
 
 
 def _op_cases():
@@ -230,6 +244,16 @@ def _op_cases():
     xb, dyb = x.bfloat16(), dy.bfloat16()
     # The channels_last (N, C, H, W) activations the model passes: (2, 6, 5, 6).
     x4, dy4 = (v.view(2, 5, 6, c).permute(0, 3, 1, 2) for v in (x, dy))
+    # A channels_last_3d volume as PSMNet passes: (2, 6, 3, 2, 5).
+    x5, dy5 = (v.view(2, 3, 2, 5, c).permute(0, 4, 1, 2, 3) for v in (x, dy))
+    # 36 channels over 77 rows (no multiple of a power of two but 1).
+    x36, dy36 = torch.randn((7, 11, 36), generator=g), torch.randn((7, 11, 36), generator=g)
+    x36, dy36 = (v.view(1, 7, 11, 36).permute(0, 3, 1, 2) for v in (x36, dy36))
+    g36, b36 = 1.0 + 0.2 * torch.randn((36,), generator=g), torch.randn((36,), generator=g)
+    stats36 = batchnorm.bn_moments_plain(batchnorm.bn_stats_plain(batchnorm.rows(x36), False),
+                                         g36, *_running(36), EPS, MOMENTUM)
+    coef36 = batchnorm.bn_relu_backward_plain(batchnorm.rows(dy36), batchnorm.rows(x36),
+                                              stats36, b36, EPS, True)[1]
     return {
         "bn_stats f32": (batchnorm.bn_stats, (x, False)),
         "bn_stats bf16 statistics": (batchnorm.bn_stats, (x, True)),
@@ -256,6 +280,15 @@ def _op_cases():
         "bn_relu_bwd_dx bf16": (batchnorm.bn_relu_bwd_dx, (dyb, xb, stats, beta, coef, False)),
         "bn_relu_bwd_dx channels_last": (batchnorm.bn_relu_bwd_dx,
                                          (dy4, x4, stats, beta, coef, True)),
+        "bn_relu_forward channels_last_3d": (
+            batchnorm.bn_relu_forward,
+            (x5, gamma, beta, *_running(c), EPS, MOMENTUM, False, True)),
+        "bn_relu_backward bf16 channels_last_3d": (
+            batchnorm.bn_relu_backward,
+            (dy5.bfloat16(), x5.bfloat16(), stats, beta, EPS, True)),
+        "bn_stats C36 ragged bf16 statistics": (batchnorm.bn_stats, (x36, True)),
+        "bn_relu_bwd_dx C36 ragged": (batchnorm.bn_relu_bwd_dx,
+                                      (dy36, x36, stats36, b36, coef36, True)),
     }
 
 
@@ -285,10 +318,10 @@ def test_rows_refuses_a_tensor_that_is_not_channels_last() -> None:
         U.MeshBatchNorm2d(6, stats_dtype=torch.float16)
 
 
-def _mesh_block(stats_dtype) -> ConvBlock:
+def _mesh_block(stats_dtype, in_channels: int = 5, out_channels: int = 6) -> ConvBlock:
     """A ConvBlock: its BatchNorms are MeshBatchNorm2d (no group)."""
     torch.manual_seed(0)
-    block = ConvBlock(5, 6, bn_stats_dtype=stats_dtype)
+    block = ConvBlock(in_channels, out_channels, bn_stats_dtype=stats_dtype)
     assert all(type(block.block[i]) is U.MeshBatchNorm2d for i in (1, 4))
     assert all(block.block[i].group is None for i in (1, 4))
     return block.to(memory_format=torch.channels_last).train()
@@ -315,9 +348,9 @@ def _library_copy(model: torch.nn.Module) -> torch.nn.Module:
     return copy.train()
 
 
-def _plain_block() -> ConvBlock:
+def _plain_block(in_channels: int = 5, out_channels: int = 6) -> ConvBlock:
     """The same ConvBlock with nn.BatchNorm2d and ReLU."""
-    return _library_copy(_mesh_block(torch.float32))
+    return _library_copy(_mesh_block(torch.float32, in_channels, out_channels))
 
 
 @pytest.mark.parametrize("stats_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -372,13 +405,19 @@ def _assert_runs_close(got, want) -> None:
         torch.testing.assert_close(s0[k], s1[k], rtol=0, atol=TOL, msg=k)
 
 
-def test_mesh_batchnorm_relu_equals_batchnorm2d_then_relu() -> None:
+# (input shape (N, H, W, C_in), output channels) of a ConvBlock.
+BLOCKS = {"c6": ((2, 12, 20, 5), 6), "c4_batch1": ((1, 12, 20, 3), 4),
+          "c36_ragged": ((3, 7, 11, 5), 36)}
+
+
+@pytest.mark.parametrize("shape, out_channels", BLOCKS.values(), ids=BLOCKS.keys())
+def test_mesh_batchnorm_relu_equals_batchnorm2d_then_relu(shape, out_channels) -> None:
     """A float32 MeshBatchNorm2d (no group) in a ConvBlock gives what
     nn.BatchNorm2d then nn.ReLU give: outputs, gradients and running
     statistics within 1e-5 (E[x^2] - E[x]^2 against a two-pass variance)."""
-    x = _nchw(_x((2, 12, 20, 5), seed=8)).contiguous(memory_format=torch.channels_last)
-    _assert_runs_close(_train_pass(_mesh_block(torch.float32), x),
-                       _train_pass(_plain_block(), x))
+    x = _nchw(_x(shape, seed=8)).contiguous(memory_format=torch.channels_last)
+    _assert_runs_close(_train_pass(_mesh_block(torch.float32, shape[-1], out_channels), x),
+                       _train_pass(_plain_block(shape[-1], out_channels), x))
 
 
 def test_default_stereo_unet_trains_on_the_batchnorm_ops(monkeypatch) -> None:
@@ -484,3 +523,77 @@ def test_folded_epilogue_equals_moments_scale_running_and_dz_coefficients(
     assert torch.equal(coef[2 * c:3 * c], t1)
     torch.testing.assert_close(coef[3 * c:], t2, rtol=EPILOGUE_RTOL, atol=0)
     assert torch.equal(dz, batchnorm.bn_relu_bwd_dx_plain(dy, x, stats, beta, coef, True))
+
+
+# -- a StereoUNet with bn_stats_dtype bfloat16 against the JAX model with it --
+
+MODEL_BASE, MODEL_HW = 4, (32, 48)
+
+
+@pytest.fixture(scope="module")
+def variables():
+    model = JaxUNet(base_channels=MODEL_BASE)
+    return jax.jit(lambda key: model.init(key, jnp.zeros((2, *MODEL_HW, 6)), train=False,
+                                          return_uncertainty=True))(jax.random.key(0))
+
+
+def _model_inputs() -> tuple[np.ndarray, np.ndarray]:
+    x = np.random.default_rng(3).uniform(0, 1, (2, *MODEL_HW, 6)).astype(np.float32)
+    target = np.random.default_rng(4).uniform(0, 10, (2, *MODEL_HW, 1)).astype(np.float32)
+    return x, target
+
+
+def _port_run(model: StereoUNet):
+    """Train-mode outputs, the gradients of one loss and the running
+    statistics."""
+    x, target = map(torch.from_numpy, _model_inputs())
+    model.zero_grad(set_to_none=True)
+    disp, logvar = model(x, return_uncertainty=True)
+    (torch.abs(disp - target) * torch.exp(-logvar) + logvar).mean().backward()
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return (disp.detach(), logvar.detach()), grads, stats
+
+
+def _jax_run(variables):
+    """The same through the JAX StereoUNet with ``bn_stats_dtype`` bfloat16,
+    in the port's key layout."""
+    x, target = map(jnp.asarray, _model_inputs())
+    model = JaxUNet(base_channels=MODEL_BASE, bn_stats_dtype=jnp.bfloat16)
+
+    def loss(params):
+        (disp, logvar), updated = model.apply(
+            {**variables, "params": params}, x, train=True, return_uncertainty=True,
+            mutable=["batch_stats"])
+        return jnp.mean(jnp.abs(disp - target) * jnp.exp(-logvar) + logvar), (
+            disp, logvar, updated)
+
+    with jax.default_matmul_precision("highest"):
+        (_, (disp, logvar, updated)), grads = jax.jit(
+            jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    stats = state_dict_from_jax({"params": variables["params"], **updated})
+    stats = {k: v for k, v in stats.items() if k.endswith(("running_mean", "running_var"))}
+    outs = (torch.from_numpy(np.array(disp)), torch.from_numpy(np.array(logvar)))
+    return outs, state_dict_from_jax({"params": grads}), stats
+
+
+def _assert_model_runs_close(got, want, tol: float) -> None:
+    (outs, grads, stats), (w_outs, w_grads, w_stats) = got, want
+    for a, b in zip(outs, w_outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=tol)
+    scale = max(float(g.abs().max()) for g in w_grads.values())
+    assert grads.keys() == w_grads.keys()
+    for key, g in w_grads.items():
+        assert float((grads[key] - g).abs().max()) <= tol * scale, key
+    assert stats.keys() == w_stats.keys()
+    for key, s in w_stats.items():
+        np.testing.assert_allclose(stats[key].numpy(), s.numpy(), rtol=0, atol=tol, err_msg=key)
+
+
+def test_bn_stats_bf16_model_equals_the_jax_model_with_it(variables) -> None:
+    model = StereoUNet(base_channels=MODEL_BASE, device="cpu", bn_stats_dtype=torch.bfloat16)
+    missing, unexpected = load_torch_state_dict(model, state_dict_from_jax(variables))
+    assert not missing and not unexpected
+    _assert_model_runs_close(_port_run(model.train()),
+                             _jax_run(variables), BF16_TOL)

@@ -4,6 +4,8 @@ byte in exactly one chunk, as ``csrc/gate.cu`` walks them), a snapshot and
 restore over a state of every kind of tensor the step gates, the rebuild
 after ``optimizer.load_state_dict`` replaces the state's tensors, the
 wrapper's refusals, and the ``restores`` counter over train steps. The
+round trip runs over a module holding every kind of tensor the step gates
+and over the train states of a tiny StereoUNet and a tiny PSMNet. The
 kernels themselves run only on the card (``chip_smoke.py``'s gate phase).
 """
 
@@ -16,9 +18,9 @@ import pytest
 import torch
 from torch import nn
 
+from stereo_depth_estimation_tpu_torch.models.psmnet import PSMNet
 from stereo_depth_estimation_tpu_torch.models.unet import StereoUNet
 from stereo_depth_estimation_tpu_torch.ops import gate
-from stereo_depth_estimation_tpu_torch.parallel.flat_adamw import make_flat_adamw
 from stereo_depth_estimation_tpu_torch.parallel.train_step import (
     TrainState, _gated_tensors, create_train_state, make_adamw, make_train_step)
 
@@ -35,11 +37,22 @@ class _Mixed(nn.Module):
         self.scale = nn.Parameter(torch.randn(7, 3).to(torch.bfloat16))
 
 
-def _state(optimizer: str) -> TrainState:
+# name -> a module whose train state (under AdamW) the step gates: "adamw"
+# the mixed module, and a tiny StereoUNet and PSMNet.
+MODELS = {
+    "adamw": _Mixed,
+    "stereo_unet": lambda: StereoUNet(base_channels=4, device="cpu"),
+    "psmnet": lambda: PSMNet(max_disparity=16, channels=4, spp_pools=(8, 4, 2, 1),
+                             device="cpu"),
+}
+
+
+def _state(name: str = "adamw") -> TrainState:
+    """The model's train state, each gated tensor set to other values, the
+    moments among them."""
     torch.manual_seed(0)
-    model = _Mixed()
-    make = make_flat_adamw if optimizer == "flat" else make_adamw
-    state = TrainState(model=model, optimizer=make(model.parameters(), 1e-3, 1e-4),
+    model = MODELS[name]()
+    state = TrainState(model=model, optimizer=make_adamw(model.parameters(), 1e-3, 1e-4),
                        generator=torch.Generator())
     with torch.no_grad():
         for t in _gated_tensors(state):
@@ -49,20 +62,24 @@ def _state(optimizer: str) -> TrainState:
 
 def _step(tensors: list[torch.Tensor]) -> None:
     """What a step does to the gated state: every tensor changes in place
-    (FlatAdamW's shared count once for each parameter that lists it)."""
+    (a tensor listed twice, twice)."""
     with torch.no_grad():
         for t in tensors:
             t.add_(1)
 
 
-@pytest.mark.parametrize("optimizer", ["flat", "adamw"])
-def test_snapshot_and_restore_round_trip(optimizer) -> None:
-    state = _state(optimizer)
+@pytest.mark.parametrize("model", MODELS)
+def test_snapshot_and_restore_round_trip(model) -> None:
+    state = _state(model)
     tensors = _gated_tensors(state)
-    weight = state.model.conv.weight
-    assert any(t is weight for t in tensors) and not weight.is_contiguous()
-    assert {t.dtype for t in tensors} == {torch.float32, torch.bfloat16, torch.int64}
-    assert any(t.dim() == 0 for t in tensors)
+    params = list(state.model.parameters())
+    assert all(any(t is p for t in tensors) for p in params)
+    assert len(tensors) == len(params) * 4 + len(list(state.model.buffers()))
+    assert any(t.dim() == 0 and t.dtype == torch.int64 for t in tensors)
+    if model == "adamw":
+        weight = state.model.conv.weight
+        assert not weight.is_contiguous()
+        assert {t.dtype for t in tensors} == {torch.float32, torch.bfloat16, torch.int64}
     before = [t.clone() for t in tensors]
     g = gate.ZeroValidGate()
     for valid_count, restored in ((1.0, False), (0.0, True), (math.nan, True),
@@ -80,18 +97,39 @@ def test_snapshot_and_restore_round_trip(optimizer) -> None:
 
 
 def test_flat_adamw_aliases_are_taken_once() -> None:
-    """The moments are views of two flat buffers and the count one tensor
-    listed under every parameter: each buffer is one range, and the buffer
-    holds each byte once."""
-    state = _state("flat")
-    opt = state.optimizer
-    table = gate.build_table(_gated_tensors(state))
+    """An optimizer state that aliases, as an AdamW over flat moment buffers
+    keeps it: the moments views of two flat buffers, in order and touching,
+    and one count listed under every parameter. Each buffer is one range,
+    the count one more, the snapshot holds each byte once, and a restore
+    undoes a step that changed the count once for each parameter."""
+    state = _state()
+    params = list(state.model.parameters())
+    n = sum(p.numel() for p in params)
+    mu, nu = torch.rand(n), torch.rand(n)
+    count = torch.zeros(())
+    offset = 0
+    for p in params:
+        view = slice(offset, offset + p.numel())
+        state.optimizer.state[p] = {"step": count, "exp_avg": mu[view].view(p.shape),
+                                    "exp_avg_sq": nu[view].view(p.shape)}
+        offset += p.numel()
+    tensors = _gated_tensors(state)
+    assert sum(t is count for t in tensors) == len(params)
+    table = gate.build_table(tensors)
     live = {(v.data_ptr(), v.numel()) for v in table.live}
-    for flat in (opt.mu, opt.nu, opt.count):
+    for flat in (mu, nu, count):
         assert (flat.data_ptr(), flat.nbytes) in live
     model_bytes = sum(t.nbytes for t in state.model.parameters())
     model_bytes += sum(t.nbytes for t in state.model.buffers())
-    assert sum(v.numel() for v in table.live) == model_bytes + 2 * opt.mu.nbytes + 4
+    assert sum(v.numel() for v in table.live) == model_bytes + 2 * mu.nbytes + 4
+    before = [t.clone() for t in tensors]
+    g = gate.ZeroValidGate()
+    g.snapshot(tensors)
+    _step(tensors)
+    assert float(count) == len(params)
+    g.restore(torch.tensor(0.0))
+    for t, b in zip(tensors, before):
+        assert torch.equal(t, b)
 
 
 def _walk(table: gate.GateTable, chunk: int) -> dict[int, int]:
@@ -158,7 +196,7 @@ def test_table_chunks_cover_every_byte_once(monkeypatch) -> None:
 
 
 def test_table_is_rebuilt_after_optimizer_load_state_dict() -> None:
-    state = _state("adamw")
+    state = _state()
     g = gate.ZeroValidGate()
     g.snapshot(_gated_tensors(state))
     g.snapshot(_gated_tensors(state))

@@ -22,10 +22,14 @@ import pytest
 import torch
 
 from stereo_depth_estimation_tpu.models import StereoUNet as JaxUNet
+from stereo_depth_estimation_tpu_torch.live.depth_live_dl import LiveDepthEngine
 from stereo_depth_estimation_tpu_torch.models import StereoUNet
 from stereo_depth_estimation_tpu_torch.models.compat import state_dict_from_jax, torch_key_map
 from stereo_depth_estimation_tpu_torch.ops.halo import SpatialGroup
+from stereo_depth_estimation_tpu_torch.parallel.mesh import make_mesh
 from stereo_depth_estimation_tpu_torch.parallel.train_step import create_train_state, make_adamw
+from stereo_depth_estimation_tpu_torch.training.config import TrainConfig
+from stereo_depth_estimation_tpu_torch.training.trainer import build_model
 from stereo_depth_estimation_tpu_torch.training.checkpoint import (
     load_model_variables,
     load_train_state,
@@ -39,17 +43,30 @@ TRUNCATION = 2.2737  # 2 / 0.87962566103423978, rounded up in the fifth digit
 STD_TOL = 0.03
 KS_LIMIT = 0.005
 
-# Each model knob holds the same modules; ``stripes`` builds every 3x3 conv
-# as a HaloConv2d (a SpatialGroup of two ranks; no collective runs at init).
+
+def _seeded(**kwargs):
+    return lambda: StereoUNet(base_channels=BASE, device="cpu",
+                              generator=torch.Generator().manual_seed(SEED), **kwargs)
+
+
+def _no_generator() -> StereoUNet:
+    torch.manual_seed(SEED)
+    return StereoUNet(base_channels=BASE, device="cpu")
+
+
+# name -> a fresh model as the program builds it. ``stripes`` builds every
+# 3x3 conv as a HaloConv2d (a SpatialGroup of two ranks; no collective runs
+# at init); ``trainer`` is the trainer's model at its defaults (seed 42,
+# base 32, bf16) on a one-rank CPU mesh; ``live_engine`` is the live
+# viewer's model (seed 0).
 VARIANTS = {
-    "default": {},
-    "fused_block": {"fused_block": True},
-    "skip_split": {"skip_impl": "split"},
-    "skip_hybrid": {"skip_impl": "hybrid"},
-    "remat": {"remat": True},
-    "bn_stats_bf16": {"bn_stats_dtype": torch.bfloat16},
-    "stripes": {"spatial_group": SpatialGroup(None, 0, 2)},
-    "no_generator": None,
+    "default": _seeded(),
+    "bn_stats_bf16": _seeded(bn_stats_dtype=torch.bfloat16),
+    "compute_bf16": _seeded(compute_dtype=torch.bfloat16),
+    "stripes": _seeded(spatial_group=SpatialGroup(None, 0, 2)),
+    "no_generator": _no_generator,
+    "trainer": lambda: build_model(TrainConfig(), make_mesh(torch.device("cpu"))),
+    "live_engine": lambda: LiveDepthEngine((320, 240), None, device="cpu").model,
 }
 
 
@@ -66,13 +83,7 @@ def jax_state() -> dict[str, np.ndarray]:
 
 @functools.cache
 def _port_state(variant: str) -> dict[str, np.ndarray]:
-    knobs = VARIANTS[variant]
-    if knobs is None:
-        torch.manual_seed(SEED)
-        model = StereoUNet(base_channels=BASE, device="cpu")
-    else:
-        model = StereoUNet(base_channels=BASE, device="cpu",
-                           generator=torch.Generator().manual_seed(SEED), **knobs)
+    model = VARIANTS[variant]()
     return {k: v.numpy().copy() for k, v in model.state_dict().items()
             if not k.endswith("num_batches_tracked")}
 
@@ -168,8 +179,8 @@ def test_seeded_fresh_model_is_reproducible_and_seed_dependent() -> None:
     for key, value in a.items():
         np.testing.assert_array_equal(value, b[key].numpy(), err_msg=key)
     assert not np.array_equal(a["enc2.block.0.weight"], c["enc2.block.0.weight"].numpy())
-    # The knobs draw the same stream over the same modules.
-    for key, value in _port_state("fused_block").items():
+    # Another mode draws the same stream over the same modules.
+    for key, value in _port_state("bn_stats_bf16").items():
         np.testing.assert_array_equal(value, a[key], err_msg=key)
 
 

@@ -23,6 +23,10 @@ from stereo_depth_estimation_tpu_torch.models.compat import (
 
 BASE = 8
 SHAPE = (2, 32, 48, 6)
+# The forward tests' inputs: SHAPE, one pair, a tall size and a batch of
+# three whose bottleneck has odd sides (3x5).
+SHAPES = {"b2_32x48": SHAPE, "b1_32x48": (1, 32, 48, 6), "b2_64x32": (2, 64, 32, 6),
+          "b3_48x80": (3, 48, 80, 6)}
 
 
 @pytest.fixture(scope="module")
@@ -52,8 +56,8 @@ def _port(variables, dtype=torch.float32) -> StereoUNet:
     return model
 
 
-def _input(seed: int = 1) -> np.ndarray:
-    return np.random.default_rng(seed).uniform(0, 1, SHAPE).astype(np.float32)
+def _input(seed: int = 1, shape: tuple[int, ...] = SHAPE) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(0, 1, shape).astype(np.float32)
 
 
 def _running_stats(model: StereoUNet) -> dict[str, np.ndarray]:
@@ -77,15 +81,16 @@ def test_state_dict_from_jax_equals_jax_exporter(jax_variables) -> None:
         np.testing.assert_array_equal(ours[key].numpy(), value, err_msg=key)
 
 
-def test_train_forward_and_running_stats_match_flax_f32(jax_variables) -> None:
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_train_forward_and_running_stats_match_flax_f32(jax_variables, shape) -> None:
     variables = jax_variables
-    x = _input()
+    x = _input(shape=shape)
     (jd, jl), mutated = _jax_apply(variables, x, train=True)
     model = _port(variables)
     model.train()
     with torch.no_grad():
         td, tl = model(torch.from_numpy(x), return_uncertainty=True)
-    assert td.shape == (2, 32, 48, 1) and tl.shape == (2, 32, 48, 1)
+    assert td.shape == tl.shape == (*shape[:3], 1)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-4)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
 
@@ -96,13 +101,14 @@ def test_train_forward_and_running_stats_match_flax_f32(jax_variables) -> None:
         np.testing.assert_allclose(value, expected[key].numpy(), atol=1e-4, err_msg=key)
 
 
-def test_eval_forward_matches_flax_f32(jax_variables) -> None:
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_eval_forward_matches_flax_f32(jax_variables, shape) -> None:
     # Non-trivial running stats: one train-mode pass on the JAX side first.
     _, mutated = _jax_apply(jax_variables, _input(3), train=True)
     variables = {
         "params": jax_variables["params"], "batch_stats": mutated["batch_stats"]
     }
-    x = _input(4)
+    x = _input(4, shape)
     jd, jl = _jax_apply(variables, x, train=False)
     model = _port(variables)
     model.eval()
@@ -116,7 +122,8 @@ def test_eval_forward_matches_flax_f32(jax_variables) -> None:
     assert -6.0 <= float(tl.min()) and float(tl.max()) <= 3.0
 
 
-def test_train_forward_matches_flax_bf16(jax_variables) -> None:
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_train_forward_matches_flax_bf16(jax_variables, shape) -> None:
     """bf16 compute, f32 parameters and BatchNorm statistics on both sides.
     The JAX BatchNorm normalises in bf16 while PyTorch normalises in f32 and
     rounds the result to bf16, so activations differ by a few bf16 ulps
@@ -125,7 +132,7 @@ def test_train_forward_matches_flax_bf16(jax_variables) -> None:
     atol 0.1 on outputs of order 1, and running stats within 0.05 + 2% of
     their size."""
     variables = jax_variables
-    x = _input(5)
+    x = _input(5, shape)
     (jd, jl), mutated = _jax_apply(variables, x, train=True, dtype=jnp.bfloat16)
     model = _port(variables, torch.bfloat16)
     model.train()
