@@ -24,7 +24,17 @@ ReLU after it run on the hand-written kernels BN1-BN4 (``ops/batchnorm.py``,
 ``_BatchNormReLU``); eval mode stays on cuDNN's BatchNorm. Its parameter and
 buffer names are ``nn.BatchNorm2d``'s, so checkpoints do not change.
 ``compute_dtype=torch.bfloat16`` runs the convolutions in bf16 under
-autocast while parameters and BatchNorm statistics stay float32.
+autocast while parameters and BatchNorm statistics stay float32. There a
+convolution whose channel count is not a multiple of 8 leaves cuDNN's fast
+tensor-core kernels (on an H100 the 1-channel heads' weight gradients ran
+on ``wgrad2d_shmem_tiling``, a direct kernel, and enc1's 6-channel forward
+took twice its time on 8), so the two that have one run on zero-padded
+channels: the input is padded to 8 channels before the NCHW view and
+enc1's first weight gets zero input channels at call time (autograd slices
+its gradient back), and the heads' weights with zero rows form one 1x1
+conv of 8 outputs over ``d1``. The padded products are exact zeros; parameters and
+checkpoints do not change. ``padded_convs.launches`` counts those
+convolutions (2 an eager bf16 forward, 0 in float32).
 
 Built with ``bn_group``, a ``torch.distributed`` group of more than one rank,
 the BatchNorm statistics are global over the group's ranks, as the JAX
@@ -66,6 +76,32 @@ from ..ops.pool import max_pool_2x2
 
 
 _STATS_DTYPES = (torch.float32, torch.bfloat16)
+# cuDNN's 16-bit tensor-core convolutions take channel counts that are
+# multiples of this; other counts are zero-padded up to it.
+_CHANNEL_ALIGN = 8
+
+
+def _channel_pad(channels: int, dtype: torch.dtype) -> int:
+    """Zero channels that make ``channels`` a multiple of 8 for a 16-bit
+    convolution; 0 in float32, which is left as it is."""
+    return -channels % _CHANNEL_ALIGN if dtype.itemsize == 2 else 0
+
+
+class PaddedConvCounter:
+    """``launches`` counts the StereoUNet's convolutions run on zero-padded
+    channels (enc1's first and the fused heads) in eager mode, and nothing
+    else. A compiled graph runs them uncounted: a Python count read while
+    tracing is a guard, and would compile the graph anew every call."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def count(self) -> None:
+        if not torch.compiler.is_compiling():
+            self.launches += 1
+
+
+padded_convs = PaddedConvCounter()
 
 
 def _bn_forward(z, gamma, beta, running, eps, momentum, bf16_stats, group, relu: bool):
@@ -193,8 +229,12 @@ class HaloConv2d(nn.Conv2d):
         super().__init__(in_channels, out_channels, 3, padding=(0, 1), bias=False)
         self.spatial = spatial
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(_padded(self, x))
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor | None) -> torch.Tensor:
+        # (N, C, h, W) channels_last is (N, h, W, C) in memory: the halo rows
+        # are concatenated there and viewed back without a copy.
+        x = self.spatial.pad(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return super()._conv_forward(x, weight, bias)
 
 
 def _conv3x3(in_channels: int, out_channels: int,
@@ -204,14 +244,16 @@ def _conv3x3(in_channels: int, out_channels: int,
     return nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
 
 
-def _padded(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``x`` with the halo rows ``conv`` convolves over (a ``HaloConv2d``),
-    else ``x``: what ``F.conv2d`` with ``conv.padding`` takes. (N, C, h, W)
-    channels_last is (N, h, W, C) in memory: the halo rows are concatenated
-    there and viewed back without a copy."""
-    if isinstance(conv, HaloConv2d):
-        return conv.spatial.pad(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-    return x
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` (no bias), where ``x`` may carry zero channels past
+    ``conv.in_channels`` (the model's padded input): the weight gets as many
+    zero input channels, so its gradient is sliced back to its shape."""
+    weight = conv.weight
+    extra = x.shape[1] - weight.shape[1]
+    if extra:
+        weight = F.pad(weight, (0, 0, 0, 0, 0, extra))
+        padded_convs.count()
+    return conv._conv_forward(x, weight, None)
 
 
 class ConvBlock(nn.Module):
@@ -236,8 +278,8 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
-        y = _bn_relu(self.block[1], self.block[2], self.block[0](x))
-        return _bn_relu(self.block[4], self.block[5], self.block[3](y))
+        y = _bn_relu(self.block[1], self.block[2], _conv(self.block[0], x))
+        return _bn_relu(self.block[4], self.block[5], _conv(self.block[3], y))
 
 
 def _bn_relu(bn: MeshBatchNorm2d, relu: nn.ReLU, z: torch.Tensor) -> torch.Tensor:
@@ -259,6 +301,22 @@ class _Head(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight, None) + self.bias.view(1, -1, 1, 1)
+
+
+def _run_heads(heads: tuple[_Head, ...], x: torch.Tensor,
+               dtype: torch.dtype) -> list[torch.Tensor]:
+    """Each head of ``x``. Where their rows together are not a multiple of 8
+    in a 16-bit ``dtype``, their weights and zero rows form one 1x1 conv
+    that reads ``x`` once, split by head; each bias is added in float32
+    after it, as ``_Head`` adds it."""
+    rows = [head.out_channels for head in heads]
+    extra = _channel_pad(sum(rows), dtype)
+    if not extra:
+        return [head(x) for head in heads]
+    weight = F.pad(torch.cat([head.weight for head in heads]), (0, 0, 0, 0, 0, 0, 0, extra))
+    padded_convs.count()
+    parts = F.conv2d(x, weight).split([*rows, extra], dim=1)
+    return [part + head.bias.view(1, -1, 1, 1) for part, head in zip(parts, heads)]
 
 
 # The std of a unit normal truncated to [-2, 2] (flax ``variance_scaling``).
@@ -360,9 +418,12 @@ class StereoUNet(nn.Module):
                 f"StereoUNet input height/width (a stripe's, on height stripes) must "
                 f"be divisible by 16 (4 pool levels); got {h}x{w}."
             )
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last in memory
         if x.dtype != self.compute_dtype:
             x = x.to(self.compute_dtype)
+        extra = _channel_pad(x.shape[-1], x.dtype)
+        if extra:  # padded in NHWC, so the NCHW view stays channels_last
+            x = F.pad(x, (0, extra))
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last in memory
         with torch.autocast(
             device_type=x.device.type,
             dtype=torch.bfloat16,
@@ -377,13 +438,14 @@ class StereoUNet(nn.Module):
             d3 = self.dec3(self.up3(d4), s3)
             d2 = self.dec2(self.up2(d3), s2)
             d1 = self.dec1(self.up1(d2), s1)
-            disp_pre = self.disparity_head(d1)
-            logvar_pre = self.logvar_head(d1) if return_uncertainty else None
+            heads = ((self.disparity_head, self.logvar_head) if return_uncertainty
+                     else (self.disparity_head,))
+            pre = _run_heads(heads, d1, self.compute_dtype)
         # Head nonlinearities in float32 (disparity >= 0, logvar bounded).
-        disparity = F.softplus(disp_pre.float()).permute(0, 2, 3, 1)
-        if logvar_pre is None:
+        disparity = F.softplus(pre[0].float()).permute(0, 2, 3, 1)
+        if not return_uncertainty:
             return disparity
-        logvar = logvar_pre.float().clamp(-6.0, 3.0).permute(0, 2, 3, 1)
+        logvar = pre[1].float().clamp(-6.0, 3.0).permute(0, 2, 3, 1)
         return disparity, logvar
 
     @staticmethod

@@ -18,7 +18,10 @@ the CPU, held against the eager port and the JAX package.
 - ``parallel/aot_cache.py``'s directory rule is the JAX module's; a cache
   directory that is not private is not loaded, a corrupt blob is compiled
   anew, and pruning keeps ``SDE_AOT_CACHE_KEEP`` blobs.
-Base 4, 32x48, float32 throughout.
+- In bf16 the model's zero-padded channels (``models/unet.py``) trace into
+  the one graph, which its padded-convolution count does not recompile, and
+  the compiled model equals the eager one within 1e-6.
+Base 4, 32x48, float32 but for that case.
 """
 
 from pathlib import Path
@@ -43,7 +46,7 @@ from stereo_depth_estimation_tpu.models.compat import export_torch_state_dict
 from stereo_depth_estimation_tpu.parallel import aot_cache as jax_aot_cache
 from stereo_depth_estimation_tpu.parallel import train_step as J
 from stereo_depth_estimation_tpu.training.checkpoint import load_model_variables as jax_load
-from stereo_depth_estimation_tpu_torch.models import StereoUNet
+from stereo_depth_estimation_tpu_torch.models import StereoUNet, unet
 from stereo_depth_estimation_tpu_torch.models.compat import (
     load_torch_state_dict,
     state_dict_from_jax,
@@ -162,6 +165,40 @@ def test_inductor_model_equals_eager_and_jax(jax_setup) -> None:
     got, want, graphs = _compiled_vs_eager(jax_setup[2], "xla")  # "xla" names Inductor
     assert graphs == 1
     _assert_close(got, want, INDUCTOR_TOL)
+
+
+def test_aot_eager_bf16_model_pads_in_its_graph_and_equals_eager() -> None:
+    """bf16 compute: the input's zero channels, enc1's padded weight and the
+    heads' padded weight (``models/unet.py``) are three ``F.pad`` calls in
+    the one graph, which the padded-convolution count does not recompile
+    (an eager forward counts 2, a compiled call none); outputs, gradients
+    and running statistics after two calls equal the eager model's."""
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (2, *HW, 6)).astype(np.float32))
+
+    def model():
+        return StereoUNet(base_channels=BASE, compute_dtype=torch.bfloat16, device="cpu",
+                          generator=torch.Generator().manual_seed(4))
+
+    eager = model()
+    _forward_and_grads(eager, eager, x)
+    before = unet.padded_convs.launches
+    want = _forward_and_grads(eager, eager, x)
+    assert unet.padded_convs.launches - before == 2
+    pads = []
+
+    def backend(gm, example_inputs):
+        pads.append(sum(getattr(n.target, "__name__", "") == "pad" for n in gm.graph.nodes))
+        return torch._dynamo.lookup_backend("aot_eager")(gm, example_inputs)
+
+    port = model()
+    torch._dynamo.reset()
+    compiled = P.compile_model(port, P.CompileOptions(backend=backend))
+    _forward_and_grads(compiled, port, x)
+    before = unet.padded_convs.launches
+    got = _forward_and_grads(compiled, port, x)
+    assert unet.padded_convs.launches == before
+    assert pads == [3]  # one graph, compiled once
+    _assert_close(got, want, AOT_EAGER_TOL)
 
 
 def test_compiled_step_matches_jax_step_body_f32(jax_setup) -> None:
